@@ -1,0 +1,17 @@
+"""Architecture configs of the port. Importing this package registers them."""
+from repro_torch.configs.base import (  # noqa: F401
+    ARCH_REGISTRY,
+    ArchConfig,
+    MLAConfig,
+    MoEConfig,
+    RecurrentConfig,
+    RWKVConfig,
+    get_config,
+    reduced,
+    register,
+    torch_dtype,
+)
+
+# one module per ported architecture — import order is alphabetical
+from repro_torch.configs import internlm2_20b  # noqa: F401,E402
+from repro_torch.configs import whisper_large_v3  # noqa: F401,E402

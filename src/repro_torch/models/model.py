@@ -1,0 +1,138 @@
+"""Config → model: parameter specs and the serving steps — PyTorch port of
+``repro/models/model.py``.
+
+- :func:`model_specs`        — ParamSpec tree for an arch (the reference's layout)
+- :func:`build_prefill_step` / :func:`build_decode_step` / :func:`decode_cache`
+- :func:`full_forward_logits` — train-path logits, the oracle decode is held to
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import torch_dtype
+from repro_torch.models import common as cm
+from repro_torch.models.transformer import LayerDef, Stack
+
+
+def _decoder(cfg) -> Stack:
+    return Stack(cfg)
+
+
+def _encoder(cfg) -> Stack:
+    defs = [LayerDef("attn", "dense")] * cfg.encoder_layers
+    return Stack(cfg, bidirectional=True, defs=defs)
+
+
+def model_specs(cfg) -> dict:
+    dt = torch_dtype(cfg.param_dtype)
+    s = {
+        "embed": cm.ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                              dt, "small"),
+        "decoder": _decoder(cfg).specs(),
+        "final_norm": cm.norm_spec(cfg, cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        s["unembed"] = cm.ParamSpec((cfg.d_model, cfg.vocab_size),
+                                    ("embed", "vocab"), dt)
+    if cfg.family == "encdec":
+        s["encoder"] = _encoder(cfg).specs()
+        s["enc_norm"] = cm.norm_spec(cfg, cfg.d_model)
+    return s
+
+
+def _sinusoid(positions, d_model: int, device=None):
+    """Whisper-style sinusoidal position embedding; positions: (S,) or scalar."""
+    pos = torch.atleast_1d(torch.as_tensor(positions, device=device)).float()
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32, device=pos.device)
+                     / max(half - 1, 1))
+    ang = pos[:, None] * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _embed_tokens(cfg, params, tokens):
+    return params["embed"][tokens].to(cfg.dtype)
+
+
+def _logit_kernel(cfg, params):
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["unembed"]
+
+
+def _encode(cfg, params, frames, dtype):
+    """Bidirectional encoder over frame embeddings -> normalized context."""
+    enc_x = frames.to(dtype)
+    enc_pos = torch.arange(enc_x.shape[1], device=enc_x.device)
+    enc_x = enc_x + _sinusoid(enc_pos, cfg.d_model).to(dtype)
+    ctx = _encoder(cfg).train(params["encoder"], enc_x, enc_pos)
+    return cm.apply_norm(cfg, params["enc_norm"], ctx)
+
+
+def _context(cfg, params, batch, x, positions):
+    """-> (decoder input, cross-attention context or None)."""
+    if cfg.family == "encdec":
+        ctx = _encode(cfg, params, batch["frames"], x.dtype)
+        return x + _sinusoid(positions, cfg.d_model).to(x.dtype), ctx
+    if cfg.family == "vision":
+        raise NotImplementedError("vision cross-attention is not ported yet: "
+                                  "ROADMAP A8.5 (llama-3.2-vision-90b)")
+    return x, None
+
+
+def _logits(cfg, params, feats):
+    feats = cm.apply_norm(cfg, params["final_norm"], feats)
+    return (feats @ _logit_kernel(cfg, params)).float()
+
+
+def full_forward_logits(cfg, params, batch):
+    """Train-path forward returning (B, S, V) logits (for tests: small V)."""
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed_tokens(cfg, params, tokens)
+    x, ctx = _context(cfg, params, batch, x, positions)
+    feats = _decoder(cfg).train(params["decoder"], x, positions, ctx)
+    return _logits(cfg, params, feats)
+
+
+# ---------------------------------------------------------------------------
+# serving
+
+
+def build_prefill_step(cfg):
+    dec = _decoder(cfg)
+
+    def prefill_step(params, batch):
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = _embed_tokens(cfg, params, tokens)
+        x, ctx = _context(cfg, params, batch, x, positions)
+        feats, cache = dec.prefill(params["decoder"], x, positions, ctx)
+        return cache, _logits(cfg, params, feats[:, -1:])[:, 0]
+
+    return prefill_step
+
+
+def build_decode_step(cfg):
+    dec = _decoder(cfg)
+
+    def decode_step(params, cache, token, pos):
+        """token: (B,1) int; pos: scalar or (B,) int — absolute position(s)
+        of ``token`` (a (B,) vector puts each row on its own timeline).
+        ``cache`` is updated in place and returned."""
+        x = _embed_tokens(cfg, params, token)
+        if cfg.family == "encdec":
+            pos_t = torch.as_tensor(pos, device=x.device)
+            pe = _sinusoid(pos_t, cfg.d_model).to(x.dtype)
+            x = x + (pe[:, None] if pos_t.ndim == 1 else pe[None])
+        feats, cache = dec.decode(params["decoder"], x, cache, pos)
+        return cache, _logits(cfg, params, feats)[:, 0]
+
+    return decode_step
+
+
+def decode_cache(cfg, batch: int, seq_len: int, device=None):
+    return _decoder(cfg).cache(batch, seq_len, cm.resolve_device(device))

@@ -1,0 +1,143 @@
+"""PyTorch port, model slice: full-forward, prefill and step-by-step decode
+logits of the port against the JAX package on the same parameters (JAX
+``init_params`` → ``params_from_jax``) and the same numpy inputs, as in
+``tests/test_decode_parity.py`` (rtol/atol 2e-3, reduced fp32 configs).
+With ``use_pallas`` the JAX encoder runs the Pallas kernel in interpret mode
+and the port's ``mha`` its plain version (CPU tensors)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
+from repro.models import build_decode_step as jax_build_decode_step
+from repro.models import build_prefill_step as jax_build_prefill_step
+from repro.models import decode_cache as jax_decode_cache
+from repro.models import model_specs as jax_model_specs
+from repro.models import attention as jattn
+from repro.models.common import init_params as jax_init_params
+from repro.serving.cache_utils import extend_cache as jax_extend_cache
+from repro.training.checkpoint import _flatten
+from test_decode_parity import full_forward_logits as jax_full_forward_logits
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import (build_decode_step, build_prefill_step, decode_cache,
+                                full_forward_logits)
+from repro_torch.models import attention as attn
+from repro_torch.models.transformer import LayerDef, Stack
+from repro_torch.serving.cache_utils import extend_cache
+from repro_torch.weights import params_from_jax
+
+TOL = dict(rtol=2e-3, atol=2e-3)
+CASES = [("whisper-large-v3", False), ("whisper-large-v3", True), ("internlm2-20b", False)]
+
+
+def _configs(arch, use_pallas):
+    return (jax_reduced(jax_get_config(arch), use_pallas=use_pallas),
+            reduced(get_config(arch), use_pallas=use_pallas))
+
+
+def _batch(cfg, tokens, frames):
+    b = {"tokens": tokens}
+    if cfg.family == "encdec":
+        b["frames"] = frames
+    return b
+
+
+@pytest.mark.parametrize("arch,use_pallas", CASES)
+def test_forward_prefill_decode_match_jax(arch, use_pallas):
+    jcfg, tcfg = _configs(arch, use_pallas)
+    total, prompt_len = 12, 6
+    jparams = jax_init_params(jax_model_specs(jcfg), seed=1)
+    tparams = params_from_jax(_flatten(jparams), device="cpu")
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, tcfg.vocab_size, (2, total)).astype(np.int32)
+    frames = rng.normal(size=(2, tcfg.encoder_frames, tcfg.d_model)).astype(np.float32)
+    jb = _batch(jcfg, jnp.asarray(tokens), jnp.asarray(frames))
+    tb = _batch(tcfg, torch.from_numpy(tokens).long(), torch.from_numpy(frames))
+
+    ref = np.asarray(jax_full_forward_logits(jcfg, jparams, jb))
+    full = full_forward_logits(tcfg, tparams, tb).numpy()
+    np.testing.assert_allclose(full, ref, **TOL)
+
+    jcache, jlog = jax.jit(jax_build_prefill_step(jcfg))(
+        jparams, dict(jb, tokens=jb["tokens"][:, :prompt_len]))
+    tcache, tlog = build_prefill_step(tcfg)(
+        tparams, dict(tb, tokens=tb["tokens"][:, :prompt_len]))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    np.testing.assert_allclose(tlog.numpy(), ref[:, prompt_len - 1], **TOL)
+
+    jdc = jax_extend_cache(jax_decode_cache(jcfg, 2, total), jcache, prompt_len)
+    tdc = extend_cache(decode_cache(tcfg, 2, total, "cpu"), tcache, prompt_len)
+    jdec, tdec = jax.jit(jax_build_decode_step(jcfg)), build_decode_step(tcfg)
+    for pos in range(prompt_len, total):
+        # alternate a shared scalar position with a per-row position vector
+        tpos = pos if pos % 2 else torch.full((2,), pos)
+        jpos = jnp.int32(pos) if pos % 2 else jnp.full((2,), pos, jnp.int32)
+        jdc, jl = jdec(jparams, jdc, jnp.asarray(tokens[:, pos:pos + 1]), jpos)
+        tdc, tl = tdec(tparams, tdc, torch.from_numpy(tokens[:, pos:pos + 1]).long(), tpos)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL,
+                                   err_msg=f"{arch} decode diverges at pos {pos}")
+        np.testing.assert_allclose(tl.numpy(), ref[:, pos], **TOL)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_decode_attention_ring_buffer_matches_jax(window):
+    """Per-row timelines against a global cache and a local ring buffer."""
+    jcfg, tcfg = _configs("internlm2-20b", False)
+    rng = np.random.default_rng(3)
+    p = {k: rng.normal(size=s).astype(np.float32) * 0.2 for k, s in
+         [("wq", (64, 4, 16)), ("wk", (64, 2, 16)), ("wv", (64, 2, 16)), ("wo", (4, 16, 64))]}
+    T = window or 9
+    k0, v0 = (rng.normal(size=(2, T, 2, 16)).astype(np.float32) for _ in range(2))
+    jc = {"k": jnp.asarray(k0), "v": jnp.asarray(v0)}
+    tc = {"k": torch.from_numpy(k0.copy()), "v": torch.from_numpy(v0.copy())}
+    for pos in [np.array([3, 7]), np.array([4, 8]), np.array([5, 2])]:
+        x = rng.normal(size=(2, 1, 64)).astype(np.float32)
+        jy, jc = jattn.decode_attention(jcfg, {k: jnp.asarray(v) for k, v in p.items()},
+                                        jnp.asarray(x), jc, jnp.asarray(pos), window=window)
+        ty, tc = attn.decode_attention(tcfg, {k: torch.from_numpy(v) for k, v in p.items()},
+                                       torch.from_numpy(x), tc, torch.from_numpy(pos),
+                                       window=window)
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(tc["k"].numpy(), np.asarray(jc["k"]), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("causal,window,q_offset,chunk", [
+    (True, None, 0, 4), (False, None, 0, 5), (True, 6, 0, 4), (True, None, 3, 16)])
+def test_chunked_attention_matches_jax(causal, window, q_offset, chunk):
+    rng = np.random.default_rng(4)
+    S, T = 11, 11 + q_offset
+    q = rng.normal(size=(2, S, 4, 16)).astype(np.float32)
+    k, v = (rng.normal(size=(2, T, 2, 16)).astype(np.float32) for _ in range(2))
+    kw = dict(causal=causal, window=window, chunk=chunk, q_offset=q_offset)
+    out = attn.chunked_attention(*map(torch.from_numpy, (q, k, v)), **kw)
+    ref = jattn.chunked_attention(*map(jnp.asarray, (q, k, v)), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+def test_extend_cache_ring_roll_matches_jax():
+    rng = np.random.default_rng(5)
+    src = rng.normal(size=(2, 1, 4, 2, 8)).astype(np.float32)      # stacked, window 4
+    tmpl = np.zeros((2, 1, 6, 2, 8), np.float32)                   # a 6-slot row
+    glob = rng.normal(size=(1, 6, 2, 8)).astype(np.float32)        # global, pad 6 -> 10
+    jt = {"blocks": {"0": {"k": jnp.asarray(tmpl)}}, "prefix": {"0": {"v": jnp.zeros((1, 10, 2, 8))}}}
+    js = {"blocks": {"0": {"k": jnp.asarray(src)}}, "prefix": {"0": {"v": jnp.asarray(glob)}}}
+    tt = {"blocks": {"0": {"k": torch.from_numpy(tmpl)}}, "prefix": {"0": {"v": torch.zeros(1, 10, 2, 8)}}}
+    ts = {"blocks": {"0": {"k": torch.from_numpy(src)}}, "prefix": {"0": {"v": torch.from_numpy(glob)}}}
+    # a prompt of 7 kept in a 4-slot window: rolled so slot p % 4 holds position p
+    ref, out = jax_extend_cache(jt, js, 7), extend_cache(tt, ts, 7)
+    for g, name in (("blocks", "k"), ("prefix", "v")):
+        np.testing.assert_array_equal(out[g]["0"][name].numpy(), np.asarray(ref[g]["0"][name]))
+
+
+@pytest.mark.parametrize("defs,item", [
+    ([LayerDef("rwkv", "rwkv_cm")], "A8.2"),
+    ([LayerDef("recurrent", "dense")], "A8.1"),
+    ([LayerDef("attn", "moe")], "A8.3"),
+    ([LayerDef("cross_only", "dense")], "A8.5"),
+])
+def test_unported_layer_kinds_name_their_roadmap_item(defs, item):
+    with pytest.raises(NotImplementedError, match=item):
+        Stack(reduced(get_config("internlm2-20b")), defs=defs)
