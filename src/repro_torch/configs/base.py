@@ -1,7 +1,7 @@
 """Architecture configuration system (PyTorch port).
 
-A copy of ``repro/configs/base.py`` reduced to what the port's serving path
-reads: :class:`ArchConfig` and the sub-configs it nests, the registry
+A copy of ``repro/configs/base.py`` reduced to what the port's serving and
+training paths read: :class:`ArchConfig` and the sub-configs it nests, the registry
 (:func:`register` / :func:`get_config`) and :func:`reduced`.  Field names,
 defaults and the ``reduced`` overrides are the reference's, so a config
 built here describes the same model as its JAX twin; only :attr:`dtype`

@@ -2,12 +2,25 @@
 device.  A CPU tensor takes the plain version; a CUDA tensor launches the
 Hopper kernel or raises — there is no fallback between the two.
 
+Differentiable, as the reference's ``mha``: on the card the kernel runs the
+forward and the backward recomputes through ``mha_ref`` under autograd
+(``kernels/autodiff.py``); on the CPU autograd runs through ``mha_ref``.
+
 ``use_pallas`` on an ArchConfig routes ``models.attention`` through this op.
 """
 from __future__ import annotations
 
+import functools
+
+from repro_torch.kernels.autodiff import kernel_with_ref_vjp
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+
+
+@functools.lru_cache(maxsize=2)
+def _diff_op(causal: bool):
+    return kernel_with_ref_vjp(functools.partial(flash_attention, causal=causal),
+                               functools.partial(mha_ref, causal=causal))
 
 
 def mha(q, k, v, *, causal: bool = True, block_q: int = 128,
@@ -20,7 +33,7 @@ def mha(q, k, v, *, causal: bool = True, block_q: int = 128,
     del block_q, block_k, interpret
     if q.device.type == "cpu":
         return mha_ref(q, k, v, causal=causal)
-    return flash_attention(q, k, v, causal=causal)
+    return _diff_op(causal)(q, k, v)
 
 
 def mha_ref(q, k, v, *, causal: bool = True):

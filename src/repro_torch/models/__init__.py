@@ -2,7 +2,10 @@ from repro_torch.models import common  # noqa: F401
 from repro_torch.models.model import (  # noqa: F401
     build_decode_step,
     build_prefill_step,
+    chunked_xent,
+    count_params,
     decode_cache,
     full_forward_logits,
+    loss_fn,
     model_specs,
 )

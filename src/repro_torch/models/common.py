@@ -60,6 +60,15 @@ def tree_leaves(tree, prefix: str = ""):
     return [(prefix, tree)]
 
 
+def tree_from_paths(template, values: dict, prefix: str = ""):
+    """``template``'s nested-dict structure with each leaf replaced by
+    ``values[path]`` (paths as :func:`tree_leaves` makes them)."""
+    if isinstance(template, dict):
+        return {k: tree_from_paths(v, values, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in template.items()}
+    return values[prefix]
+
+
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
@@ -83,15 +92,8 @@ def init_params(specs, seed: int = 0, device=None):
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    vals = {path: _init_leaf(s, gen, dev) for path, s in tree_leaves(specs)}
-
-    def build(tree, prefix=""):
-        if isinstance(tree, dict):
-            return {k: build(v, f"{prefix}/{k}" if prefix else str(k))
-                    for k, v in tree.items()}
-        return vals[prefix]
-
-    return build(specs)
+    return tree_from_paths(specs, {path: _init_leaf(s, gen, dev)
+                                   for path, s in tree_leaves(specs)})
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""Dense feed-forward variants: SwiGLU, squared-ReLU, (gated-)GELU — PyTorch
-port of ``repro/models/ffn.py``."""
+"""Dense feed-forward variants: SwiGLU, squared-ReLU, (gated-)GELU, and the
+RWKV-6 channel mix — PyTorch port of ``repro/models/ffn.py``."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.models import common as cm
@@ -27,3 +29,27 @@ def ffn(cfg, p: dict, x):
     else:
         h = cm.ACTIVATIONS[cfg.ffn_activation](up)
     return (h @ p["w_down"]).to(x.dtype)
+
+
+def rwkv_channel_mix_specs(cfg) -> dict:
+    """RWKV-6 channel mix: token-shift + squared-ReLU keyed by receptance."""
+    d, f = cfg.d_model, cfg.d_ff
+    dt = torch_dtype(cfg.param_dtype)
+    return {
+        "mu_k": cm.ParamSpec((d,), ("embed",), torch.float32, "small"),
+        "mu_r": cm.ParamSpec((d,), ("embed",), torch.float32, "small"),
+        "w_k": cm.ParamSpec((d, f), ("embed", "mlp"), dt),
+        "w_v": cm.ParamSpec((f, d), ("mlp", "embed"), dt),
+        "w_r": cm.ParamSpec((d, d), ("embed", "embed"), dt),
+    }
+
+
+def rwkv_channel_mix(cfg, p: dict, x, x_prev):
+    """x: (B,S,d); x_prev: (B,S,d) token-shifted input (prev token)."""
+    sx = x_prev - x
+    kx = x + sx * p["mu_k"].to(x.dtype)
+    rx = x + sx * p["mu_r"].to(x.dtype)
+    k = torch.square(torch.relu(kx @ p["w_k"]))
+    kv = k @ p["w_v"]
+    r = torch.sigmoid((rx @ p["w_r"]).float())
+    return (r.to(x.dtype) * kv).to(x.dtype)

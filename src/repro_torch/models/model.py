@@ -1,15 +1,18 @@
-"""Config → model: parameter specs and the serving steps — PyTorch port of
-``repro/models/model.py``.
+"""Config → model: parameter specs, train loss and the serving steps —
+PyTorch port of ``repro/models/model.py``.
 
 - :func:`model_specs`        — ParamSpec tree for an arch (the reference's layout)
+- :func:`loss_fn`            — full train loss (chunked cross-entropy; MoE aux 0)
 - :func:`build_prefill_step` / :func:`build_decode_step` / :func:`decode_cache`
 - :func:`full_forward_logits` — train-path logits, the oracle decode is held to
+- :func:`count_params`       — analytic N
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.models import common as cm
@@ -40,6 +43,10 @@ def model_specs(cfg) -> dict:
         s["encoder"] = _encoder(cfg).specs()
         s["enc_norm"] = cm.norm_spec(cfg, cfg.d_model)
     return s
+
+
+def count_params(cfg) -> int:
+    return sum(math.prod(spec.shape) for _, spec in cm.tree_leaves(model_specs(cfg)))
 
 
 def _sinusoid(positions, d_model: int, device=None):
@@ -86,6 +93,52 @@ def _context(cfg, params, batch, x, positions):
 def _logits(cfg, params, feats):
     feats = cm.apply_norm(cfg, params["final_norm"], feats)
     return (feats @ _logit_kernel(cfg, params)).float()
+
+
+def _xent_block(fb, kernel, lb):
+    logits = (fb @ kernel).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lb[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_xent(cfg, features, kernel, labels):
+    """Mean cross-entropy without materializing (B,S,V) logits.
+
+    features: (B,S,d); kernel: (d,V); labels: (B,S) int.  Loops over
+    sequence chunks of cfg.xent_chunk; under autograd each chunk's logits are
+    recomputed in backward (the reference's ``jax.checkpoint(body)``).  The
+    reference's optional ``mask`` has no caller and is left out.
+    """
+    S = features.shape[1]
+    C = cfg.xent_chunk if S % cfg.xent_chunk == 0 else S
+    tot = torch.zeros((), dtype=torch.float32, device=features.device)
+    # split, not slicing: one concatenation of the chunks' feature grads in
+    # backward instead of a full-size zero-padded grad per chunk
+    for fb, lb in zip(features.split(C, dim=1), labels.long().split(C, dim=1)):
+        if torch.is_grad_enabled():
+            tot = tot + checkpoint(_xent_block, fb, kernel, lb, use_reentrant=False)
+        else:
+            tot = tot + _xent_block(fb, kernel, lb)
+    return tot / max(labels.numel(), 1)
+
+
+AUX_WEIGHT = 0.01
+
+
+def loss_fn(cfg, params, batch):
+    """batch: {tokens, labels[, frames]} → (loss, metrics).  The MoE
+    auxiliary loss is 0 until MoE is ported (ROADMAP A8.3)."""
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed_tokens(cfg, params, tokens)
+    x, ctx = _context(cfg, params, batch, x, positions)
+    feats = _decoder(cfg).train(params["decoder"], x, positions, ctx)
+    feats = cm.apply_norm(cfg, params["final_norm"], feats)
+    xent = chunked_xent(cfg, feats, _logit_kernel(cfg, params), batch["labels"])
+    aux = torch.zeros((), dtype=torch.float32, device=xent.device)
+    loss = xent + AUX_WEIGHT * aux
+    return loss, {"xent": xent, "moe_aux": aux}
 
 
 def full_forward_logits(cfg, params, batch):

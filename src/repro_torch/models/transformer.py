@@ -12,11 +12,15 @@ is a Python loop over that axis.
 
 Three modes share the layer application: ``train`` (full sequence, no
 cache), ``prefill`` (full sequence, emits the decode cache) and ``decode``
-(one token, updates the cache in place).  This slice ports the ``attn``
-mixer with a dense FFN and the whisper decoder's cross-attention; every
-other mixer or FFN kind raises ``NotImplementedError`` naming its ROADMAP
-item.  The MoE auxiliary loss the reference threads through is therefore
-always zero here and is not carried.
+(one token, updates the cache in place).  The port has the ``attn`` mixer
+with a dense FFN and the whisper decoder's cross-attention in every mode,
+and the ``rwkv`` mixer with the ``rwkv_cm`` channel mix in ``train`` only;
+every other mixer or FFN kind, and rwkv serving, raises
+``NotImplementedError`` naming its ROADMAP item.  The MoE auxiliary loss the
+reference threads through is therefore always zero here and is not carried.
+The reference's ``cfg.remat_policy`` (a ``jax.checkpoint`` around each
+repeated block) is not ported: eager autograd keeps every layer's
+activations (ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -24,11 +28,13 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,19 +48,26 @@ class LayerDef:
 _NOT_PORTED = {
     "local_attn": "ROADMAP A8.1 (recurrentgemma-9b)",
     "recurrent": "ROADMAP A8.1 (recurrentgemma-9b, kernel K2)",
-    "rwkv": "ROADMAP A8.2 (rwkv6-7b, kernel K3)",
-    "rwkv_cm": "ROADMAP A8.2 (rwkv6-7b)",
     "mla": "ROADMAP A8.3 (deepseek-v2-236b)",
     "moe": "ROADMAP A8.3 (deepseek-v2-236b, moonshot-v1-16b-a3b)",
     "cross_only": "ROADMAP A8.5 (llama-3.2-vision-90b)",
 }
 
 
-def _require_ported(ld: LayerDef) -> None:
+#: layer kinds ported for ``train`` only -> the ROADMAP item that serves them
+_SERVING_NOT_PORTED = {
+    "rwkv": "ROADMAP A8.2 (rwkv6-7b serving: rwkv_decode and the prefill state)",
+    "rwkv_cm": "ROADMAP A8.2 (rwkv6-7b serving: the channel-mix token-shift cache)",
+}
+
+
+def _require_ported(ld: LayerDef, serving: bool = False) -> None:
+    missing = dict(_NOT_PORTED, **(_SERVING_NOT_PORTED if serving else {}))
     for kind in (ld.mixer, ld.ffn):
-        if kind in _NOT_PORTED:
+        if kind in missing:
+            what = "for serving" if kind in _SERVING_NOT_PORTED else "yet"
             raise NotImplementedError(
-                f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
+                f"layer kind {kind!r} is not ported {what}: {missing[kind]}")
 
 
 def build_layer_defs(cfg) -> List[LayerDef]:
@@ -100,12 +113,14 @@ def factor_layers(cfg, defs: List[LayerDef]) -> Tuple[List, List, int, List]:
 
 def layer_specs(cfg, ld: LayerDef) -> dict:
     _require_ported(ld)
-    s = {"ln1": cm.norm_spec(cfg, cfg.d_model), "mixer": attn.attn_specs(cfg)}
+    s = {"ln1": cm.norm_spec(cfg, cfg.d_model)}
+    s["mixer"] = rwkv_mod.rwkv_specs(cfg) if ld.mixer == "rwkv" else attn.attn_specs(cfg)
     if ld.cross:
         s["ln_cross"] = cm.norm_spec(cfg, cfg.d_model)
         s["cross"] = attn.attn_specs(cfg, cross=True)
     s["ln2"] = cm.norm_spec(cfg, cfg.d_model)
-    s["ffn"] = ffn_mod.ffn_specs(cfg)
+    s["ffn"] = (ffn_mod.rwkv_channel_mix_specs(cfg) if ld.ffn == "rwkv_cm"
+                else ffn_mod.ffn_specs(cfg))
     return s
 
 
@@ -117,7 +132,7 @@ def stack_specs(tree, n: int):
 
 def layer_cache(cfg, ld: LayerDef, batch: int, seq_len: int, device) -> dict:
     """Zero decode cache for one layer."""
-    _require_ported(ld)
+    _require_ported(ld, serving=True)
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     pdt = torch_dtype(cfg.param_dtype)
 
@@ -148,11 +163,18 @@ def _at(tree, i: int):
 
 def apply_layer_train(cfg, ld, p, x, positions, ctx, bidirectional=False):
     h = cm.apply_norm(cfg, p["ln1"], x)
-    x = x + attn.self_attention(cfg, p["mixer"], h, positions, causal=not bidirectional)
+    if ld.mixer == "rwkv":
+        out, _, _ = rwkv_mod.rwkv_time_mix(cfg, p["mixer"], h, want_state=False)
+    else:
+        out = attn.self_attention(cfg, p["mixer"], h, positions, causal=not bidirectional)
+    x = x + out
     if ld.cross:
         hc = cm.apply_norm(cfg, p["ln_cross"], x)
         x = x + attn.cross_attention(cfg, p["cross"], hc, attn.cross_kv(p["cross"], ctx))
     h2 = cm.apply_norm(cfg, p["ln2"], x)
+    if ld.ffn == "rwkv_cm":
+        prev = F.pad(h2, (0, 0, 1, 0))[:, :-1]          # token shift, zero at t=0
+        return x + ffn_mod.rwkv_channel_mix(cfg, p["ffn"], h2, prev)
     return x + ffn_mod.ffn(cfg, p["ffn"], h2)
 
 
@@ -246,7 +268,12 @@ class Stack:
             x = apply_layer_train(self.cfg, d, lp, x, positions, ctx, self.bidirectional)
         return x
 
+    def _require_serving(self) -> None:
+        for d in self.defs:
+            _require_ported(d, serving=True)
+
     def prefill(self, p: dict, x, positions, ctx=None):
+        self._require_serving()
         caches: dict = {}
         stacked: dict = {}
         for group, key, r, d, lp in self._layers(p):
@@ -263,6 +290,7 @@ class Stack:
 
     def decode(self, p: dict, x, caches: dict, pos):
         """One token; ``caches`` is updated in place and returned."""
+        self._require_serving()
         for group, key, r, d, lp in self._layers(p):
             c = caches[group][key] if r is None else _at(caches[group][key], r)
             x = apply_layer_decode(self.cfg, d, lp, x, c, pos)

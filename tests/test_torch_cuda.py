@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention.ops import mha, mha_ref
+from repro_torch.kernels.rwkv6 import rwkv6_scan as k3
+from repro_torch.kernels.rwkv6.ops import time_mix_chunked, time_mix_ref, time_mix_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -59,3 +61,97 @@ def test_flash_kernel_reads_strided_views(card):
     ref = mha_ref(q, k, v, causal=True)
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
                                **_tol("bfloat16"))
+
+
+def test_flash_kernel_gradient_matches_plain(card):
+    """``mha`` on the card: kernel forward, ``mha_ref`` backward, against
+    autograd through ``mha_ref`` alone."""
+    for dtype, tol in (("float32", dict(rtol=1e-3, atol=1e-4)),
+                       ("bfloat16", dict(rtol=2e-2, atol=2e-2))):
+        gen = torch.Generator(device=card).manual_seed(5)
+        q, k, v = (torch.randn((2, 256, 8 if i == 0 else 2, 64), generator=gen, device=card)
+                   .to(DTYPES[dtype]).requires_grad_() for i in range(3))
+        w = torch.randn((2, 256, 8, 64), generator=gen, device=card).to(DTYPES[dtype])
+        before = fa.flash_attention.launches
+        out = mha(q, k, v, causal=True)
+        assert out.grad_fn is not None and fa.flash_attention.launches == before + 1
+        got = torch.autograd.grad((out.float() * w.float()).sum(), (q, k, v))
+        want = torch.autograd.grad((mha_ref(q, k, v, causal=True).float() * w.float()).sum(),
+                                   (q, k, v))
+        for name, a, b in zip("qkv", got, want):
+            np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                                       err_msg=f"{dtype} d{name}", **tol)
+
+
+# tests/test_kernels.py::test_rwkv6_kernel_sweep, then the rwkv6-7b layer at B=1
+RWKV_SHAPES = [(1, 64, 2, 32, 32), (2, 128, 4, 64, 32), (1, 256, 2, 16, 64),
+               (1, 512, 64, 64, 32)]
+
+
+def _rwkv_inputs(card, B, S, H, hd, dtype, seed, lw_high=4.0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=card).to(dtype)
+               for _ in range(3))
+    # log-decay in [-lw_high, -0.01]: strong decay included
+    lw = -(0.01 + (lw_high - 0.01) * torch.rand((B, S, H, hd), generator=gen, device=card))
+    u = torch.randn((H, hd), generator=gen, device=card)
+    return r, k, v, lw, u
+
+
+def _rel_err(out, ref):
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs().max() / (ref.abs().max() + 1e-6)).item()
+
+
+@pytest.mark.parametrize("B,S,H,hd,chunk", RWKV_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rwkv6_kernel_matches_plain(card, B, S, H, hd, chunk, dtype):
+    """K3 against the sequential oracle, limits of the JAX sweep (the
+    largest difference relative to the largest output)."""
+    args = _rwkv_inputs(card, B, S, H, hd, DTYPES[dtype], seed=S + H)
+    before = k3.rwkv6_scan.launches
+    out = time_mix_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert k3.rwkv6_scan.launches == before + 1
+    assert out.dtype == DTYPES[dtype] and out.shape == (B, S, H, hd)
+    assert _rel_err(out, time_mix_ref(*args)) < (2e-2 if dtype == "bfloat16" else 1e-5)
+
+
+def test_rwkv6_kernel_state_continuity(card):
+    """Chunk boundaries are invisible: chunk 32 equals chunk 128."""
+    args = _rwkv_inputs(card, 1, 128, 2, 32, torch.float32, seed=7, lw_high=1.0)
+    o32, o128 = time_mix_scan(*args, chunk=32), time_mix_scan(*args, chunk=128)
+    assert _rel_err(o32, o128) < 1e-5
+    assert _rel_err(o128, time_mix_ref(*args)) < 1e-5
+
+
+def test_rwkv6_kernel_reads_strided_views(card):
+    """r, k, v as views of one fused (B, S, 3, H, hd) projection: no copies."""
+    rkv = torch.randn((2, 64, 3, 4, 16), device=card, dtype=torch.bfloat16)
+    r, k, v = rkv.unbind(2)
+    _, _, _, lw, u = _rwkv_inputs(card, 2, 64, 4, 16, torch.bfloat16, seed=3)
+    out = k3.rwkv6_scan(r, k, v, lw, u, chunk=32)
+    assert _rel_err(out, time_mix_chunked(r, k, v, lw, u, chunk=32)) < 2e-2
+
+
+def test_rwkv6_kernel_gradient_matches_plain(card):
+    """``time_mix_scan`` on the card: K3 forward, chunked plain backward."""
+    args = [t.requires_grad_() for t in _rwkv_inputs(card, 1, 128, 4, 64, torch.float32, 9)]
+    w = torch.randn((1, 128, 4, 64), device=card)
+    got = torch.autograd.grad((time_mix_scan(*args) * w).sum(), args)
+    want = torch.autograd.grad((time_mix_ref(*args) * w).sum(), args)
+    for name, a, b in zip("r k v lw u".split(), got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-3, atol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["hd", "ragged", "dtype", "device"])
+def test_rwkv6_kernel_refuses_what_it_does_not_take(card, case):
+    r, k, v, lw, u = _rwkv_inputs(card, 1, 64, 2, 128 if case == "hd" else 32,
+                                  torch.float32, seed=1)
+    if case == "dtype":
+        lw = lw.to(torch.bfloat16)
+    if case == "device":
+        u = u.cpu()
+    with pytest.raises(ValueError):
+        k3.rwkv6_scan(r, k, v, lw, u, chunk=48 if case == "ragged" else 32)

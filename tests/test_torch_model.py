@@ -25,6 +25,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.models import (build_decode_step, build_prefill_step, decode_cache,
                                 full_forward_logits)
 from repro_torch.models import attention as attn
+from repro_torch.models.common import init_params
 from repro_torch.models.transformer import LayerDef, Stack
 from repro_torch.serving.cache_utils import extend_cache
 from repro_torch.weights import params_from_jax
@@ -139,5 +140,19 @@ def test_extend_cache_ring_roll_matches_jax():
     ([LayerDef("cross_only", "dense")], "A8.5"),
 ])
 def test_unported_layer_kinds_name_their_roadmap_item(defs, item):
+    """A layer kind not ported for serving raises on the serving path (rwkv
+    trains, so its stack builds and only its cache refuses)."""
     with pytest.raises(NotImplementedError, match=item):
-        Stack(reduced(get_config("internlm2-20b")), defs=defs)
+        Stack(reduced(get_config("internlm2-20b")), defs=defs).cache(1, 8, "cpu")
+
+
+def test_rwkv_serving_names_its_roadmap_item():
+    cfg = reduced(get_config("rwkv6-7b"))
+    stack = Stack(cfg)
+    params = init_params(stack.specs(), device="cpu")
+    x = torch.zeros((1, 4, cfg.d_model))
+    with pytest.raises(NotImplementedError, match="A8.2"):
+        stack.prefill(params, x, torch.arange(4))
+    with pytest.raises(NotImplementedError, match="A8.2"):
+        stack.decode(params, x[:, :1], {}, 0)
+    assert stack.train(params, x, torch.arange(4)).shape == x.shape
