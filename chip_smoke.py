@@ -18,6 +18,13 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    both dtypes, the chunk-32-vs-128 continuity case and the rwkv6-7b
    training shape (B=2, S=4096, H=64, hd=64, bf16), where the kernel and
    both plain versions (sequential and chunked) are timed.
+4. rglru kernel — the RG-LRU scan (K2) against ``rglru_ref`` (and the
+   sequential loop) at every shape of ``test_rglru_kernel_sweep`` (1e-4, as
+   there) and a bf16 case, then at recurrentgemma-9b's training shape
+   (B=2, S=4096, W=4096) and one serving prefill (B=1, S=2112, W=4096),
+   where K2, ``rglru_ref`` and (at the sweep shapes) the sequential loop
+   are timed; K2's gradient (kernel forward, ``rglru_ref`` backward)
+   against autograd through ``rglru_ref``.
 4. serving — whisper-large-v3 at full width and depth (32 + 32 layers,
    d_model 1280, vocab 51866, 1500 frames) in bf16 with random seeded
    weights and ``use_pallas=True``: 16 requests through the continuous
@@ -26,16 +33,37 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
 5. parity — the full-width fp32 encoder, layer by layer, through the kernel
    and through the plain path from the same input; the largest difference
    must be <= 1e-3 (see ``parity_phase`` for why per layer).
-6. train — rwkv6-7b at full width (d_model 4096, 64 heads of 64, d_ff
+6. rg serving — recurrentgemma-9b at full width and depth (38 layers:
+   12 x (recurrent, recurrent, local_attn) + 2 recurrent; d_model 4096,
+   lru_width 4096, 16 heads of 256 with 1 kv head, d_ff 12288, vocab
+   256000, window 2048; 10.4 B parameters) in bf16 with random seeded
+   weights and ``use_pallas=True``: ``ServingEngine(batch_size=8,
+   max_seq=2304)``, 16 requests through ``submit``/``drain`` and one
+   ``generate`` group.  Most prompts are multiples of 64 and two are longer
+   than the window; K2 must launch 26 times (once per recurrent layer) for
+   every prefill whose length is a multiple of 64 and never otherwise.
+7. rg decode parity — full width in fp32 at depth 3: a 2112-token prompt
+   (past the 2048 window, so the prefill's window is ring-rolled) decoded
+   for 8 tokens; every step's logits against the full forward's, within
+   2e-3.
+8. train — rwkv6-7b at full width (d_model 4096, 64 heads of 64, d_ff
    14336, vocab 65536) cut to 4 of 32 layers, bf16 params, fp32 moments,
    ``use_pallas=True``: 3 steps of the port's launcher loop at global batch
    8 x 4096 tokens in 4 microbatches.  K3 must launch once per layer and
    microbatch (48 times; the backward recomputes through the plain chunked
    version), loss and grad norm must be finite and every layer's mixer
    parameters must receive a gradient.
-7. train-parity — the same width in fp32 at depth 2, B=1, S=1024: the loss
-   and its grads through K3 against the plain path, within 5e-3 on the loss
-   and 1e-3 relative on the grad norm.
+9. rg train — recurrentgemma-9b at full width cut to 3 of 38 layers (one
+   (recurrent, recurrent, local_attn) cycle; 2.76 B parameters with the
+   untied 256000 x 4096 embedding and unembedding), bf16 params, fp32
+   moments, ``use_pallas=True``: 3 steps of 8 x 4096 tokens in 4
+   microbatches.  K2 must launch once per recurrent layer and microbatch
+   (24 times); loss and grad norm finite; every recurrent layer's ``lam``,
+   ``w_a`` and ``w_x`` must receive a gradient.
+10. train-parity — rwkv6-7b at full width in fp32, depth 2, B=1, S=1024:
+    the loss and its grads through K3 against the plain path, within 5e-3
+    on the loss and 1e-3 relative on the grad norm.  Then the same for
+    recurrentgemma-9b at depth 3 through K2.
 
 Output: the card (``nvidia-smi`` name and power limit), one JSON line per
 phase, the ``{"kernels": [...]}`` line, and as the last line
@@ -74,9 +102,24 @@ RWKV_SWEEP = [(1, 64, 2, 32, 32), (2, 128, 4, 64, 32), (1, 256, 2, 16, 64)]
 RWKV_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TRAIN_SHAPE = (2, 4096, 64, 64)                 # B, S, H, hd of one rwkv6-7b microbatch
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 3, 8, 4096
+#: tests/test_kernels.py::test_rglru_kernel_sweep (B, S, W)
+RGLRU_SWEEP = [(1, 128, 128), (2, 256, 256), (1, 512, 384)]
+RGLRU_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}  # (rtol, atol)
+RGLRU_TRAIN_SHAPE = (2, 4096, 4096)             # B, S, W of one recurrentgemma-9b microbatch
+RGLRU_PREFILL_SHAPE = (1, 2112, 4096)           # a serving prefill past the 2048 window
+RG_TRAIN_LAYERS = 3                             # one (recurrent, recurrent, local_attn) cycle
+#: rg serving: 13 of the 16 prompts are multiples of 64; 2112 and 2150 pass the window
+RG_LENGTHS = (64, 128, 256, 384, 512, 640, 768, 1024, 1280, 1536, 1792, 2048, 2112, 2150,
+              100, 500)
+RG_GROUP = (100, 333, 700, 1024)                # padded to 1024: a multiple of 64
+RG_MAX_SEQ = 2304
+LOGIT_TOL = (2e-3, 2e-3)                        # tests/test_decode_parity.py
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line names the card its numbers come from."""
+    if "phase" in obj:
+        obj = {"phase": obj["phase"], "card": CARD[0], **obj}
     print(json.dumps(obj), flush=True)
 
 
@@ -102,8 +145,8 @@ def attention_inputs(B, S, H, K, hd, dtype, seed):
     return q, k, v
 
 
-def check_close(name, out, ref, dtype) -> float:
-    rtol, atol = TOL[dtype]
+def check_close(name, out, ref, dtype, tol=TOL) -> float:
+    rtol, atol = tol[dtype]
     o, r = out.float(), ref.float()
     err = (o - r).abs()
     bad = err > atol + rtol * r.abs()
@@ -266,37 +309,116 @@ def rwkv6_kernel_phase(k3, time_mix_scan, time_mix_ref, time_mix_chunked) -> dic
     return res
 
 
-def serving_phase(fa, cfg, n_requests: int = 16) -> dict:
-    """whisper-large-v3 at full size through the port's engine."""
-    from repro_torch.models.common import tree_leaves
-    from repro_torch.serving import Request, ServingEngine
+def rglru_inputs(B, S, W, dtype, seed):
+    """The sweep's distributions: a ~ U(0.2, 0.999), b ~ N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = 0.2 + 0.799 * torch.rand((B, S, W), generator=gen, device="cuda")
+    b = torch.randn((B, S, W), generator=gen, device="cuda")
+    return a.to(dtype), b.to(dtype)
 
-    t0 = time.perf_counter()
-    eng = ServingEngine(cfg, batch_size=8, max_seq=448, seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
 
-    # record (on the device) whether any step produced a NaN logit
-    nan_flags = []
+def rglru_bound(B, S, W, elem_bytes):
+    """(bound ms, bound_by): a and b read once, h written once; one FMA per
+    element in fp32."""
+    t_ops = 2 * B * S * W / PEAK_FP32_FLOPS
+    t_bytes = 3 * B * S * W * elem_bytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
-    def watch(step):
-        def run(*args):
-            cache, logits = step(*args)
+
+def rglru_kernel_phase(k2, linear_recurrence, rglru_ref, rglru_sequential) -> dict:
+    """K2 against ``rglru_ref`` (and the time loop at the sweep's shapes);
+    times at the training and serving prefill shapes."""
+    sweep = []
+    for i, (B, S, W) in enumerate(RGLRU_SWEEP):
+        a, b = rglru_inputs(B, S, W, torch.float32, seed=i)
+        out = k2.rglru_scan(a, b)
+        err = check_close(f"rglru sweep {(B, S, W)}", out, rglru_ref(a, b), torch.float32,
+                          RGLRU_TOL)
+        check_close(f"rglru sweep {(B, S, W)}, time loop", out, rglru_sequential(a, b),
+                    torch.float32, RGLRU_TOL)
+        sweep.append(dict(shape=[B, S, W], max_abs_err=err,
+                          kernel_ms=cuda_ms(lambda: k2.rglru_scan(a, b)),
+                          plain_ms=cuda_ms(lambda: rglru_ref(a, b), iters=5),
+                          sequential_ms=cuda_ms(lambda: rglru_sequential(a, b), iters=1,
+                                                warmup=1)))
+    a, b = rglru_inputs(*RGLRU_SWEEP[1], torch.bfloat16, seed=3)
+    bf16_err = check_close("rglru bf16", k2.rglru_scan(a, b), rglru_ref(a, b), torch.bfloat16,
+                           RGLRU_TOL)
+    grad_err = rglru_grad_check(linear_recurrence, rglru_ref)
+
+    res = dict(cases=len(RGLRU_SWEEP) * 2 + 4, sweep=sweep, bf16_max_abs_err=bf16_err,
+               grad_max_rel_err=grad_err)
+    for tag, shape in (("", RGLRU_TRAIN_SHAPE), ("_prefill", RGLRU_PREFILL_SHAPE)):
+        a, b = rglru_inputs(*shape, torch.float32, seed=9)
+        out = k2.rglru_scan(a, b)
+        with torch.no_grad():
+            ref = rglru_ref(a, b)
+        res["max_abs_err" + tag] = check_close(f"rglru shape {shape}", out, ref, torch.float32,
+                                               RGLRU_TOL)
+        res["max_rel_err" + tag] = ((out - ref).abs().max() / ref.abs().max()).item()
+        with torch.no_grad():
+            res["kernel_ms" + tag] = cuda_ms(lambda: k2.rglru_scan(a, b))
+            res["plain_ms" + tag] = cuda_ms(lambda: rglru_ref(a, b), iters=5)
+        res["bound_ms" + tag], res["bound_by" + tag] = rglru_bound(*shape, 4)
+        res["shape" + tag] = list(shape)
+    # what one recurrent layer and microbatch of the train step pays: K2
+    # forward, then the backward recomputing through the doubling scan
+    leaves = [t.detach().requires_grad_() for t in rglru_inputs(*RGLRU_TRAIN_SHAPE,
+                                                                torch.float32, seed=9)]
+    g = torch.randn(RGLRU_TRAIN_SHAPE, device="cuda")
+    res["fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(linear_recurrence(*leaves),
+                                                            leaves, g), iters=3, warmup=1)
+    emit({"phase": "rglru_kernel", **res})
+    return res
+
+
+def rglru_grad_check(linear_recurrence, rglru_ref) -> float:
+    """``linear_recurrence`` (K2 forward, ``rglru_ref`` backward) against
+    autograd through ``rglru_ref`` alone."""
+    a, b = (t.requires_grad_() for t in rglru_inputs(*RGLRU_SWEEP[1], torch.float32, seed=11))
+    w = torch.randn(a.shape, device="cuda")
+    got = torch.autograd.grad((linear_recurrence(a, b) * w).sum(), (a, b))
+    want = torch.autograd.grad((rglru_ref(a, b) * w).sum(), (a, b))
+    rtol, atol = GRAD_TOL[torch.float32]
+    for name, x, y in zip("ab", got, want):
+        if not torch.isfinite(x).all() or ((x - y).abs() > atol + rtol * y.abs()).any():
+            raise AssertionError(f"K2 gradient d{name} disagrees with the plain version: "
+                                 f"max abs err {(x - y).abs().max().item():.3e}")
+    return max(((x - y).abs().max() / y.abs().max()).item() for x, y in zip(got, want))
+
+
+def drive_engine(eng, cfg, lengths, group_lengths) -> tuple:
+    """Requests of prompt ``lengths`` through ``submit``/``drain``, then one
+    ``generate`` group; every request must finish with in-vocabulary tokens
+    and no step may produce a NaN logit.  The launch counts are set to 0
+    just before and read just after.  Returns the serving metrics and, per
+    prefill, (prompt length, launches by kernel)."""
+    from repro_torch.serving import Request
+
+    nan_flags, prefills = [], []          # NaN flags stay on the device until the end
+
+    def watch(step, per_prefill):
+        def run(params, *args):
+            before = read_counts()
+            cache, logits = step(params, *args)
             nan_flags.append(torch.isnan(logits).any())
+            if per_prefill:
+                after = read_counts()
+                prefills.append((args[0]["tokens"].shape[1],
+                                 {k: after[k] - before[k] for k in after}))
             return cache, logits
         return run
 
-    eng._prefill, eng._decode = watch(eng._prefill), watch(eng._decode)
+    eng._prefill, eng._decode = watch(eng._prefill, True), watch(eng._decode, False)
 
     rng = np.random.default_rng(0)
-    lengths = np.linspace(4, 64, n_requests).astype(int)
-    budgets = rng.permutation(np.linspace(8, 64, n_requests).astype(int))
+    budgets = rng.permutation(np.linspace(8, 64, len(lengths)).astype(int))
     reqs = [Request(f"r{i}", rng.integers(0, cfg.vocab_size, n).astype(np.int32),
                     max_new_tokens=int(m)) for i, (n, m) in enumerate(zip(lengths, budgets))]
     group = [Request(f"g{i}", rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-                     max_new_tokens=16) for i, n in enumerate((5, 17, 33, 60))]
+                     max_new_tokens=16) for i, n in enumerate(group_lengths)]
 
-    fa.flash_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
@@ -306,19 +428,16 @@ def serving_phase(fa, cfg, n_requests: int = 16) -> dict:
     t0 = time.perf_counter()
     eng.generate(group)
     gen_wall_s = time.perf_counter() - t0
-    launches = fa.flash_attention.launches
+    launches = read_counts()
 
     for r in reqs + group:
         assert r.done and len(r.generated) == r.max_new_tokens, r.request_id
         assert all(0 <= t < cfg.vocab_size for t in r.generated), r.request_id
     assert not torch.stack(nan_flags).any().item(), "NaN logits in serving"
-    prefills = len(reqs) + 1                  # one B=1 prime per request, one group prefill
-    assert launches == cfg.encoder_layers * prefills, (
-        f"K1 launched {launches} times, expected {cfg.encoder_layers} x {prefills}")
+    assert len(prefills) == len(reqs) + 1     # one B=1 prime per request, one group prefill
     gen_steps = eng.metrics["decode_steps"] - cb_metrics["decode_steps"]
     res = dict(
-        arch=cfg.name, params=sum(t.numel() for _, t in tree_leaves(eng.params)),
-        init_s=init_s, requests=len(reqs), prefills=prefills, k1_launches=launches,
+        arch=cfg.name, requests=len(reqs), prefills=len(prefills), launches=launches,
         prime_ms=cb_metrics["prefill_ms"] / len(reqs),
         step_ms=cb_metrics["decode_ms"] / cb_metrics["decode_steps"],
         decode_steps=cb_metrics["decode_steps"], tokens=cb_metrics["tokens"],
@@ -327,10 +446,122 @@ def serving_phase(fa, cfg, n_requests: int = 16) -> dict:
         generate_step_ms=(eng.metrics["decode_ms"] - cb_metrics["decode_ms"]) / gen_steps,
         generate_tokens_per_s=sum(r.max_new_tokens for r in group) / gen_wall_s,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return res, prefills
+
+
+def new_engine(cfg, max_seq: int):
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving import ServingEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, batch_size=8, max_seq=max_seq, seed=0)
+    torch.cuda.synchronize()
+    return eng, dict(params=sum(t.numel() for _, t in tree_leaves(eng.params)),
+                     init_s=time.perf_counter() - t0)
+
+
+def serving_phase(cfg, n_requests: int = 16) -> dict:
+    """whisper-large-v3 at full size through the port's engine."""
+    eng, info = new_engine(cfg, max_seq=448)
+    res, prefills = drive_engine(eng, cfg, np.linspace(4, 64, n_requests).astype(int),
+                                 (5, 17, 33, 60))
+    launches = res["launches"]["flash_attention"]
+    assert launches == cfg.encoder_layers * len(prefills), (
+        f"K1 launched {launches} times, expected {cfg.encoder_layers} x {len(prefills)}")
+    res.update(info, k1_launches=launches)
     res.update(encoder_breakdown(cfg, eng.params))
     emit({"phase": "serving", **res})
     emit({"phase": "profile", **profile_window(eng, cfg)})
     del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def rg_serving_phase(cfg) -> dict:
+    """recurrentgemma-9b at full width and depth through the port's engine;
+    K2 launches once per recurrent layer in every prefill whose length is a
+    multiple of 64 (the gate of ``models/rglru.py::rglru_block``), and never
+    in the others."""
+    n_rec = sum(kind == "recurrent" for kind in cfg.layer_kinds())
+    eng, info = new_engine(cfg, max_seq=RG_MAX_SEQ)
+    res, prefills = drive_engine(eng, cfg, RG_LENGTHS, RG_GROUP)
+    for S, counts in prefills:
+        want = n_rec if S % 64 == 0 else 0
+        if counts["rglru_scan"] != want:
+            raise AssertionError(f"prefill of {S} tokens launched K2 {counts['rglru_scan']} "
+                                 f"times, expected {want}")
+    k2_launches = res["launches"]["rglru_scan"]
+    if k2_launches != n_rec * sum(S % 64 == 0 for S, _ in prefills):
+        raise AssertionError(f"K2 launched {k2_launches} times over the serving run")
+    res.update(info, recurrent_layers=n_rec, k2_launches=k2_launches,
+               k2_prefills=sum(S % 64 == 0 for S, _ in prefills),
+               longest_prompt=max(RG_LENGTHS), window=cfg.local_window)
+    emit({"phase": "rg_serving", **res})
+    res["profile"] = profile_window(eng, cfg, prompt_len=64)
+    emit({"phase": "rg_profile", **res["profile"]})
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def rg_decode_parity_phase(k2) -> dict:
+    """recurrentgemma-9b at full width in fp32 at depth 3: prefill a
+    2112-token prompt (past the 2048 window, a multiple of 64, so K2 runs),
+    decode 8 tokens, and hold each step's logits to the full forward's
+    within 2e-3 (``tests/test_decode_parity.py``).  The prefill's window is
+    full, so a cache that skipped the ring roll would hand decode the wrong
+    positions.  Beside each step's error stands the full forward's own change
+    at that position when the embedding table moves by 1e-7 relative
+    (``step_sensitivity``): how far fp32 rounding alone moves that logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (build_decode_step, build_prefill_step, decode_cache,
+                                    full_forward_logits, model_specs)
+    from repro_torch.models.common import init_params
+    from repro_torch.serving.cache_utils import extend_cache
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=RG_TRAIN_LAYERS,
+                              param_dtype="float32", compute_dtype="float32", use_pallas=True)
+    P = RGLRU_PREFILL_SHAPE[1]
+    total = P + 8
+    params = init_params(model_specs(cfg), seed=2, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, total), generator=gen, device="cuda")
+    rtol, atol = LOGIT_TOL
+    errs = []
+
+    def check(name, got, want):
+        err = (got - want).abs()
+        if not torch.isfinite(got).all() or (err > atol + rtol * want.abs()).any():
+            raise AssertionError(f"rg decode parity, {name}: max abs err "
+                                 f"{err.max().item():.3e} (limit {atol} + {rtol} x |ref|)")
+        errs.append(err.max().item())
+
+    with torch.inference_mode():
+        full = full_forward_logits(cfg, params, {"tokens": tokens})[0]   # (total, V)
+        before = k2.rglru_scan.launches
+        cache, logits = build_prefill_step(cfg)(params, {"tokens": tokens[:, :P]})
+        launched = k2.rglru_scan.launches - before
+        check("prefill", logits[0], full[P - 1])
+        cache = extend_cache(decode_cache(cfg, 1, total, "cuda"), cache, P)
+        decode = build_decode_step(cfg)
+        for pos in range(P, total):
+            cache, logits = decode(params, cache, tokens[:, pos:pos + 1], pos)
+            check(f"decode at {pos}", logits[0], full[pos])
+        embed = params["embed"]
+        params["embed"] = embed * (1 + 1e-7 * torch.randn(embed.shape, generator=gen,
+                                                          device="cuda"))
+        moved = (full_forward_logits(cfg, params, {"tokens": tokens})[0] - full).abs()
+        params["embed"] = embed
+    if launched != 2:
+        raise AssertionError(f"rg decode parity: the prefill launched K2 {launched} times, "
+                             "expected 2")
+    res = dict(layers=cfg.num_layers, prompt=P, window=cfg.local_window, decoded=total - P,
+               k2_launches_prefill=launched, max_abs_err=max(errs), step_errs=errs,
+               step_sensitivity=moved[P - 1:].amax(dim=-1).tolist(),
+               logit_abs_max=full.abs().max().item())
+    emit({"phase": "rg_decode_parity", **res})
+    del params, full
     torch.cuda.empty_cache()
     return res
 
@@ -401,48 +632,78 @@ def parity_phase(fa, cfg) -> dict:
     return res
 
 
-def train_phase(k3, fa) -> dict:
-    """rwkv6-7b at full width, 4 of 32 layers, through the port's launcher
-    loop: 3 steps of 8 x 4096 tokens in 4 microbatches."""
-    from repro_torch.configs import get_config
+def train_phase(cfg, kernel, expected: int, needs_grad) -> dict:
+    """``cfg`` at full width through the port's launcher loop: 3 steps of
+    8 x 4096 tokens in ``cfg.microbatches`` microbatches.  ``kernel`` (the
+    wrapper with the path's launch count) must launch ``expected`` times, and
+    every stacked parameter whose path ``needs_grad`` accepts must have
+    received a gradient in every layer."""
     from repro_torch.launch.train import train_loop
     from repro_torch.models import count_params
     from repro_torch.models.common import tree_leaves
 
-    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=TRAIN_LAYERS, use_pallas=True)
     assert cfg.param_dtype == "bfloat16" and cfg.moment_dtype == "float32"
     torch.cuda.reset_peak_memory_stats()
-    k3.rwkv6_scan.launches = fa.flash_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     state, records = train_loop(cfg, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
                                 seq=TRAIN_SEQ, device="cuda", log=lambda s: None)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches, k1_launches = k3.rwkv6_scan.launches, fa.flash_attention.launches
+    launches = read_counts()
 
     for r in records:
         if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
             raise AssertionError(f"train step {r['step']}: loss {r['loss']}, "
                                  f"grad norm {r['grad_norm']}")
-    expected = TRAIN_LAYERS * cfg.microbatches * TRAIN_STEPS
-    if len(records) != TRAIN_STEPS or launches != expected:
-        raise AssertionError(f"K3 launched {launches} times in {len(records)} steps, "
-                             f"expected {expected}")
-    # a parameter whose grad was ever non-zero has a non-zero second moment
-    no_grad = [f"{path}[{layer}]" for path, nu in tree_leaves(state.opt.nu)
-               if "/mixer/" in path for layer in range(TRAIN_LAYERS)
-               if not nu[layer].abs().sum().item() > 0]
+    if len(records) != TRAIN_STEPS or launches[kernel.__name__] != expected:
+        raise AssertionError(f"{kernel.__name__} launched {launches[kernel.__name__]} times in "
+                             f"{len(records)} steps, expected {expected}")
+    # a parameter whose grad was ever non-zero has a non-zero second moment;
+    # stacked leaves carry one layer per row
+    checked = [(path, nu.flatten(1).abs().sum(1)) for path, nu in tree_leaves(state.opt.nu)
+               if "/blocks/" in path and needs_grad(path)]
+    if not checked:
+        raise AssertionError("no parameter was checked for a gradient")
+    no_grad = [f"{path}[{i}]" for path, per_layer in checked
+               for i in (per_layer > 0).logical_not().nonzero().flatten().tolist()]
     if no_grad:
-        raise AssertionError(f"mixer parameters without a gradient: {no_grad}")
-    res = dict(arch=cfg.name, layers=TRAIN_LAYERS, params=count_params(cfg),
+        raise AssertionError(f"parameters without a gradient: {no_grad}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = dict(arch=cfg.name, layers=cfg.num_layers, params=count_params(cfg),
                batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=cfg.microbatches,
-               k3_launches=launches, k1_launches=k1_launches, wall_s=wall_s, steps=records,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    emit({"phase": "train", **res})
-    emit({"phase": "train_profile", **profile_train_step(cfg, state)})
+               launches=launches, grads_checked=len(checked), wall_s=wall_s, steps=records,
+               peak_mem_gb=peak_gb, **memory_breakdown(cfg, state))
+    emit({"phase": f"train {cfg.name}", **res})
+    emit({"phase": f"train_profile {cfg.name}", **profile_train_step(cfg, state)})
     del state
     torch.cuda.empty_cache()
     return res
+
+
+def memory_breakdown(cfg, state) -> dict:
+    """What the train state holds (params and moments), the step's fp32 grad
+    accumulators, and the peak of one microbatch's forward and backward
+    alone on that state (no accumulators, no update): the step's peak less
+    these three is what the AdamW update adds."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training.data import SyntheticTokenDataset
+    from repro_torch.training.train_step import _grad_fn
+
+    state_gb = sum(t.numel() * t.element_size() for tree in (state.params, state.opt.mu,
+                                                             state.opt.nu)
+                   for _, t in tree_leaves(tree)) / 1e9
+    rows = TRAIN_BATCH // cfg.microbatches
+    batch = {k: torch.from_numpy(v).to("cuda", torch.long) for k, v in
+             SyntheticTokenDataset(cfg.vocab_size, TRAIN_SEQ, rows).batch_at(0).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, grads = _grad_fn(cfg, state.params, batch)
+    del grads
+    torch.cuda.synchronize()
+    return dict(state_gb=state_gb,
+                grad_accum_gb=sum(t.numel() for _, t in tree_leaves(state.params)) * 4 / 1e9,
+                peak_fwd_bwd_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def profile_train_step(cfg, state) -> dict:
@@ -485,57 +746,83 @@ def device_profile(fn) -> dict:
             "top_device_ms": [[k[:80], ms, n] for k, ms, n in rows[:10]]}
 
 
-def train_parity_phase(k3) -> dict:
-    """Full-width rwkv6-7b in fp32 at depth 2: ``loss_fn`` and its grads
-    through K3 against the plain path, from the same params and batch."""
+def train_parity_phase(arch: str, layers: int, kernel, expected: int) -> dict:
+    """``arch`` at full width in fp32 at ``layers`` layers, B=1, S=1024:
+    ``loss_fn`` and its grads through the kernel (``expected`` launches)
+    against the plain path, from the same params and batch.  Beside it, the
+    plain path's own change when every parameter moves by 1e-7 relative
+    (``sensitivity_1e7``): how far fp32 rounding alone moves the grad norm."""
     from repro_torch.configs import get_config
     from repro_torch.models import model_specs
-    from repro_torch.models.common import init_params
+    from repro_torch.models.common import init_params, tree_map
     from repro_torch.training.data import SyntheticTokenDataset
     from repro_torch.training.optimizer import global_norm
     from repro_torch.training.train_step import _grad_fn
 
-    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=2, param_dtype="float32",
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, param_dtype="float32",
                               compute_dtype="float32", use_pallas=False)
     params = init_params(model_specs(cfg), seed=1, device="cuda")
     batch = {k: torch.from_numpy(v).to("cuda", torch.long) for k, v in
              SyntheticTokenDataset(cfg.vocab_size, 1024, 1).batch_at(0).items()}
     out, grads = {}, {}
     for name, use in (("kernel", True), ("plain", False)):
-        before = k3.rwkv6_scan.launches
+        before = kernel.launches
         (loss, _), grads[name] = _grad_fn(dataclasses.replace(cfg, use_pallas=use), params, batch)
-        out[name] = (loss.item(), global_norm(grads[name]).item(),
-                     k3.rwkv6_scan.launches - before)
+        out[name] = (loss.item(), global_norm(grads[name]).item(), kernel.launches - before)
     leaf_diff = max(((grads["kernel"][k] - g).abs().max() / g.abs().max()).item()
                     for k, g in grads["plain"].items())
     del grads
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    nudged = tree_map(lambda t: t * (1 + 1e-7 * torch.randn(t.shape, generator=gen,
+                                                              device="cuda")), params)
+    (loss_n, _), grads_n = _grad_fn(cfg, nudged, batch)
+    sens = dict(loss=abs(loss_n.item() - out["plain"][0]),
+                grad_norm=abs(global_norm(grads_n).item() - out["plain"][1]) / out["plain"][1])
+    del nudged, grads_n
     dloss = abs(out["kernel"][0] - out["plain"][0])
     dnorm = abs(out["kernel"][1] - out["plain"][1]) / out["plain"][1]
-    if out["kernel"][2] != cfg.num_layers or out["plain"][2] != 0:
-        raise AssertionError(f"train-parity: K3 launches {out['kernel'][2]} / {out['plain'][2]}")
+    if out["kernel"][2] != expected or out["plain"][2] != 0:
+        raise AssertionError(f"train-parity {arch}: {kernel.__name__} launches "
+                             f"{out['kernel'][2]} / {out['plain'][2]}, expected {expected} / 0")
     if not (dloss <= 5e-3 and dnorm <= 1e-3):
-        raise AssertionError(f"train-parity: |dloss| {dloss:.3e} (limit 5e-3), relative "
+        raise AssertionError(f"train-parity {arch}: |dloss| {dloss:.3e} (limit 5e-3), relative "
                              f"grad-norm difference {dnorm:.3e} (limit 1e-3)")
-    res = dict(layers=cfg.num_layers, seq=1024, loss_kernel=out["kernel"][0],
-               loss_plain=out["plain"][0], abs_loss_diff=dloss,
+    res = dict(arch=arch, layers=layers, seq=1024, launches=expected,
+               loss_kernel=out["kernel"][0], loss_plain=out["plain"][0], abs_loss_diff=dloss,
                grad_norm_kernel=out["kernel"][1], grad_norm_plain=out["plain"][1],
-               rel_grad_norm_diff=dnorm, max_rel_leaf_grad_diff=leaf_diff)
-    emit({"phase": "train_parity", **res})
+               rel_grad_norm_diff=dnorm, max_rel_leaf_grad_diff=leaf_diff,
+               sensitivity_1e7=sens)
+    emit({"phase": f"train_parity {arch}", **res})
     del params
     torch.cuda.empty_cache()
     return res
 
 
-def profile_window(eng, cfg) -> dict:
+def profile_window(eng, cfg, prompt_len: int = 16) -> dict:
     """Device busy and idle share over 8 admissions and 8 decode steps."""
     from repro_torch.serving import Request
 
     rng = np.random.default_rng(1)
     for i in range(eng.batch_size):
-        eng.submit(Request(f"p{i}", rng.integers(0, cfg.vocab_size, 16).astype(np.int32),
-                           max_new_tokens=9))
+        eng.submit(Request(f"p{i}", rng.integers(0, cfg.vocab_size, prompt_len)
+                           .astype(np.int32), max_new_tokens=9))
     torch.cuda.synchronize()
     return device_profile(eng.drain)
+
+
+#: kernel wrappers by name, each with its ``launches`` count (filled by main)
+KERNELS: dict = {}
+#: the card, as nvidia-smi names it with its power limit (filled by main)
+CARD = ["not read"]
+
+
+def reset_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def main() -> int:
@@ -546,6 +833,9 @@ def main() -> int:
     from repro_torch.kernels.build import build
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ops import mha, mha_ref
+    from repro_torch.kernels.rglru import rglru_scan as k2
+    from repro_torch.kernels.rglru.ops import linear_recurrence
+    from repro_torch.kernels.rglru.ref import rglru_ref, rglru_sequential
     from repro_torch.kernels.rwkv6 import rwkv6_scan as k3
     from repro_torch.kernels.rwkv6.ops import time_mix_chunked, time_mix_ref, time_mix_scan
 
@@ -553,10 +843,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(card.stdout.strip().splitlines()[0], flush=True)
+    CARD[0] = card.stdout.strip().splitlines()[0]
+    print(CARD[0], flush=True)
+    KERNELS.update((fn.__name__, fn) for fn in (fa.flash_attention, k2.rglru_scan, k3.rwkv6_scan))
 
     t0 = time.perf_counter()
-    sources = (fa.SOURCE, k3.SOURCE)
+    sources = (fa.SOURCE, k2.SOURCE, k3.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:       # one nvcc per source, together
         libs = list(pool.map(build, sources))
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": {
@@ -575,13 +867,39 @@ def main() -> int:
     k1 = timed("kernels", kernel_phase, fa, mha, mha_ref)
     k3_res = timed("rwkv6_kernel", rwkv6_kernel_phase, k3, time_mix_scan, time_mix_ref,
                    time_mix_chunked)
+    k2_res = timed("rglru_kernel", rglru_kernel_phase, k2, linear_recurrence, rglru_ref,
+                   rglru_sequential)
     cfg = dataclasses.replace(get_config("whisper-large-v3"), use_pallas=True)
-    serving = timed("serving", serving_phase, fa, cfg)
+    serving = timed("serving", serving_phase, cfg)
     timed("parity", parity_phase, fa, cfg)
-    train = timed("train", train_phase, k3, fa)
-    timed("train_parity", train_parity_phase, k3)
+    rg_cfg = dataclasses.replace(get_config("recurrentgemma-9b"), use_pallas=True)
+    rg_serving = timed("rg_serving", rg_serving_phase, rg_cfg)
+    timed("rg_decode_parity", rg_decode_parity_phase, k2)
+    rwkv_cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=TRAIN_LAYERS,
+                                   use_pallas=True)
+    train = timed("train", train_phase, rwkv_cfg, k3.rwkv6_scan,
+                  TRAIN_LAYERS * rwkv_cfg.microbatches * TRAIN_STEPS,
+                  lambda path: "/mixer/" in path)
+    rg_train_cfg = dataclasses.replace(rg_cfg, num_layers=RG_TRAIN_LAYERS)
+    n_rec = sum(kind == "recurrent" for kind in rg_train_cfg.layer_kinds())
+    rg_train = timed("rg_train", train_phase, rg_train_cfg, k2.rglru_scan,
+                     n_rec * rg_train_cfg.microbatches * TRAIN_STEPS,
+                     lambda path: path.rsplit("/", 1)[-1] in ("lam", "w_a", "w_x"))
+    timed("train_parity", train_parity_phase, "rwkv6-7b", 2, k3.rwkv6_scan, 2)
+    timed("rg_train_parity", train_parity_phase, "recurrentgemma-9b", RG_TRAIN_LAYERS,
+          k2.rglru_scan, n_rec)
     emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - t0})
+    emit({"phase": "summary", "recurrentgemma-9b serving": {
+        k: rg_serving[k] for k in ("prime_ms", "step_ms", "tokens_per_s")} | {
+        "device_idle_share": rg_serving["profile"].get("device_idle_share", "not measured")},
+        "recurrentgemma-9b train": {
+            "step_ms": [r["step_ms"] for r in rg_train["steps"]],
+            "tokens_per_s": [r["tokens_per_s"] for r in rg_train["steps"]],
+            "peak_mem_gb": rg_train["peak_mem_gb"]},
+        "k2": {k: k2_res[k] for k in ("kernel_ms", "bound_ms", "kernel_ms_prefill",
+                                      "bound_ms_prefill")}})
 
+    k2_launches = rg_serving["k2_launches"] + rg_train["launches"]["rglru_scan"]
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -590,10 +908,20 @@ def main() -> int:
         "ms": k1["kernel_ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"]}, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru/rglru_scan.py:22",
+        "launches": k2_launches, "launches_serving": rg_serving["k2_launches"],
+        "launches_train": rg_train["launches"]["rglru_scan"],
+        "max_abs_err": k2_res["max_abs_err"], "ms": k2_res["kernel_ms"],
+        "plain_ms": k2_res["plain_ms"], "bound_ms": k2_res["bound_ms"],
+        "bound_by": k2_res["bound_by"], "ms_prefill": k2_res["kernel_ms_prefill"],
+        "plain_ms_prefill": k2_res["plain_ms_prefill"],
+        "bound_ms_prefill": k2_res["bound_ms_prefill"], "library_ms": None}, {
         "name": "rwkv6_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6/rwkv6_scan.py:24",
-        "launches": train["k3_launches"], "max_abs_err": k3_res["max_abs_err"],
+        "launches": train["launches"]["rwkv6_scan"], "max_abs_err": k3_res["max_abs_err"],
         "ms": k3_res["kernel_ms"], "plain_ms": k3_res["plain_chunked_ms"],
         "plain_sequential_ms": k3_res["plain_sequential_ms"],
         "bound_ms": k3_res["bound_ms"], "bound_by": k3_res["bound_by"],

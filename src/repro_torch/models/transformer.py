@@ -12,12 +12,14 @@ is a Python loop over that axis.
 
 Three modes share the layer application: ``train`` (full sequence, no
 cache), ``prefill`` (full sequence, emits the decode cache) and ``decode``
-(one token, updates the cache in place).  The port has the ``attn`` mixer
-with a dense FFN and the whisper decoder's cross-attention in every mode,
-and the ``rwkv`` mixer with the ``rwkv_cm`` channel mix in ``train`` only;
-every other mixer or FFN kind, and rwkv serving, raises
-``NotImplementedError`` naming its ROADMAP item.  The MoE auxiliary loss the
-reference threads through is therefore always zero here and is not carried.
+(one token, updates the cache in place).  The port has, in every mode, the
+``attn`` mixer with a dense FFN and the whisper decoder's cross-attention,
+and the recurrentgemma hybrid's ``recurrent`` (RG-LRU) and ``local_attn``
+(sliding window, ring-buffer cache) mixers; and the ``rwkv`` mixer with the
+``rwkv_cm`` channel mix in ``train`` only.  Every other mixer or FFN kind,
+and rwkv serving, raises ``NotImplementedError`` naming its ROADMAP item.
+The MoE auxiliary loss the reference threads through is therefore always
+zero here and is not carried.
 The reference's ``cfg.remat_policy`` (a ``jax.checkpoint`` around each
 repeated block) is not ported: eager autograd keeps every layer's
 activations (ROADMAP A3).
@@ -34,6 +36,7 @@ from repro_torch.configs.base import torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 
 
@@ -46,8 +49,6 @@ class LayerDef:
 
 #: layer kinds not yet ported -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "local_attn": "ROADMAP A8.1 (recurrentgemma-9b)",
-    "recurrent": "ROADMAP A8.1 (recurrentgemma-9b, kernel K2)",
     "mla": "ROADMAP A8.3 (deepseek-v2-236b)",
     "moe": "ROADMAP A8.3 (deepseek-v2-236b, moonshot-v1-16b-a3b)",
     "cross_only": "ROADMAP A8.5 (llama-3.2-vision-90b)",
@@ -114,7 +115,12 @@ def factor_layers(cfg, defs: List[LayerDef]) -> Tuple[List, List, int, List]:
 def layer_specs(cfg, ld: LayerDef) -> dict:
     _require_ported(ld)
     s = {"ln1": cm.norm_spec(cfg, cfg.d_model)}
-    s["mixer"] = rwkv_mod.rwkv_specs(cfg) if ld.mixer == "rwkv" else attn.attn_specs(cfg)
+    if ld.mixer == "rwkv":
+        s["mixer"] = rwkv_mod.rwkv_specs(cfg)
+    elif ld.mixer == "recurrent":
+        s["mixer"] = rglru_mod.rglru_specs(cfg)
+    else:                                   # attn | local_attn
+        s["mixer"] = attn.attn_specs(cfg)
     if ld.cross:
         s["ln_cross"] = cm.norm_spec(cfg, cfg.d_model)
         s["cross"] = attn.attn_specs(cfg, cross=True)
@@ -136,10 +142,17 @@ def layer_cache(cfg, ld: LayerDef, batch: int, seq_len: int, device) -> dict:
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     pdt = torch_dtype(cfg.param_dtype)
 
-    def mk(*shape):
-        return torch.zeros(shape, dtype=pdt, device=device)
+    def mk(*shape, dtype=pdt):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
-    c = {"k": mk(batch, seq_len, K, hd), "v": mk(batch, seq_len, K, hd)}
+    if ld.mixer == "recurrent":
+        r = cfg.recurrent
+        c = {"h": mk(batch, r.lru_width, dtype=torch.float32),
+             "conv": mk(batch, r.conv_width - 1, r.lru_width, dtype=torch.float32)}
+    else:
+        # a local layer keeps a ring buffer of its window's latest positions
+        slots = min(cfg.local_window, seq_len) if ld.mixer == "local_attn" else seq_len
+        c = {"k": mk(batch, slots, K, hd), "v": mk(batch, slots, K, hd)}
     if ld.cross:
         t = cfg.encoder_frames
         # cross-attention layers are full MHA (attn_specs(cross=True))
@@ -165,6 +178,10 @@ def apply_layer_train(cfg, ld, p, x, positions, ctx, bidirectional=False):
     h = cm.apply_norm(cfg, p["ln1"], x)
     if ld.mixer == "rwkv":
         out, _, _ = rwkv_mod.rwkv_time_mix(cfg, p["mixer"], h, want_state=False)
+    elif ld.mixer == "recurrent":
+        out, _ = rglru_mod.rglru_block(cfg, p["mixer"], h)
+    elif ld.mixer == "local_attn":
+        out = attn.self_attention(cfg, p["mixer"], h, positions, window=cfg.local_window)
     else:
         out = attn.self_attention(cfg, p["mixer"], h, positions, causal=not bidirectional)
     x = x + out
@@ -182,7 +199,12 @@ def apply_layer_prefill(cfg, ld, p, x, positions, ctx):
     """Train-path compute + emit the decode cache (sized to the prompt; the
     caller right-pads it to max_seq)."""
     h = cm.apply_norm(cfg, p["ln1"], x)
-    out, cache = attn.prefill_attention(cfg, p["mixer"], h, positions)
+    if ld.mixer == "recurrent":
+        out, (hf, conv) = rglru_mod.rglru_block(cfg, p["mixer"], h)
+        cache = {"h": hf, "conv": conv}
+    else:
+        window = cfg.local_window if ld.mixer == "local_attn" else None
+        out, cache = attn.prefill_attention(cfg, p["mixer"], h, positions, window=window)
     x = x + out
     if ld.cross:
         hc = cm.apply_norm(cfg, p["ln_cross"], x)
@@ -196,8 +218,14 @@ def apply_layer_prefill(cfg, ld, p, x, positions, ctx):
 def apply_layer_decode(cfg, ld, p, x, cache, pos):
     """x: (B,1,d). Updates ``cache`` in place; returns x."""
     h = cm.apply_norm(cfg, p["ln1"], x)
-    out, _ = attn.decode_attention(cfg, p["mixer"], h,
-                                   {"k": cache["k"], "v": cache["v"]}, pos)
+    if ld.mixer == "recurrent":
+        out, hf, conv = rglru_mod.rglru_decode(cfg, p["mixer"], h, cache["h"], cache["conv"])
+        cache["h"].copy_(hf)
+        cache["conv"].copy_(conv)
+    else:
+        window = cfg.local_window if ld.mixer == "local_attn" else None
+        out, _ = attn.decode_attention(cfg, p["mixer"], h,
+                                       {"k": cache["k"], "v": cache["v"]}, pos, window=window)
     x = x + out
     if ld.cross:
         hc = cm.apply_norm(cfg, p["ln_cross"], x)

@@ -4,6 +4,10 @@ Prefill emits caches sized to the prompt; decode wants ``max_seq`` slots.
 ``extend_cache`` right-pads the sequence axis of global KV leaves and
 re-rolls ring-buffered local-window leaves so that slot ``p % window`` holds
 absolute position ``p`` (the invariant ``decode_attention`` relies on).
+Unlike the reference, a sequence leaf is fitted even when its prefill shape
+already equals the template's: a local layer's prompt longer than its window
+fills the window exactly and still needs the roll (the reference returns it
+in prompt order, and decode then reads the wrong positions).
 
 ``write_slots`` is the continuous-batching primitive: it scatters the batch
 rows of one cache into chosen batch slots of the shared decode cache.  It
@@ -53,10 +57,10 @@ def extend_cache(template, prefill_cache, prompt_len: int):
     def f(path, tmpl, src):
         name = path[-1]
         src = src.to(tmpl.dtype)
+        if name in _SEQ_LEAVES:         # before the shape test: a full window rolls
+            return _fit_seq(name, tmpl, src, prompt_len)
         if src.shape == tmpl.shape:
             return src
-        if name in _SEQ_LEAVES:
-            return _fit_seq(name, tmpl, src, prompt_len)
         raise ValueError(
             f"cache leaf {name!r}: prefill shape {tuple(src.shape)} does not fit "
             f"decode template {tuple(tmpl.shape)}")

@@ -60,6 +60,10 @@ def _const(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=dtype))
 
 
+#: elements of a leaf updated at once (see ``apply_updates``)
+UPDATE_SLICE = 1 << 24
+
+
 @torch.no_grad()
 def apply_updates(hp: AdamWConfig, params, grads, state: OptState):
     """One AdamW step, in place on ``params`` and ``state``'s moments.
@@ -89,5 +93,12 @@ def apply_updates(hp: AdamWConfig, params, grads, state: OptState):
     flat_v = dict(cm.tree_leaves(state.nu))
     flat_g = dict(cm.tree_leaves(grads))
     for path, p in cm.tree_leaves(params):
-        upd_one(p, flat_g[path], flat_m[path], flat_v[path])
+        # slice by slice: the same arithmetic per element, with the update's
+        # ~10 temporaries in the moment dtype bounded by the slice, not the
+        # leaf (a 256000 x 4096 embedding would need ~40 GB of them in fp32)
+        pv, mv, vv = (t.view(-1) for t in (p, flat_m[path], flat_v[path]))
+        gv = flat_g[path].reshape(-1)
+        for i in range(0, pv.numel(), UPDATE_SLICE):
+            sl = slice(i, i + UPDATE_SLICE)
+            upd_one(pv[sl], gv[sl], mv[sl], vv[sl])
     return params, OptState(step, state.mu, state.nu), {"grad_norm": gnorm, "lr": lr}

@@ -11,6 +11,9 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention.ops import mha, mha_ref
+from repro_torch.kernels.rglru import rglru_scan as k2
+from repro_torch.kernels.rglru.ops import linear_recurrence
+from repro_torch.kernels.rglru.ref import rglru_ref, rglru_sequential
 from repro_torch.kernels.rwkv6 import rwkv6_scan as k3
 from repro_torch.kernels.rwkv6.ops import time_mix_chunked, time_mix_ref, time_mix_scan
 
@@ -155,3 +158,74 @@ def test_rwkv6_kernel_refuses_what_it_does_not_take(card, case):
         u = u.cpu()
     with pytest.raises(ValueError):
         k3.rwkv6_scan(r, k, v, lw, u, chunk=48 if case == "ragged" else 32)
+
+
+# tests/test_kernels.py::test_rglru_kernel_sweep (B, S, W), a ragged width and
+# length, then one recurrentgemma-9b serving prefill and the training shape
+RGLRU_SHAPES = [(1, 128, 128), (2, 256, 256), (1, 512, 384), (3, 100, 72), (1, 2112, 4096),
+                (2, 4096, 4096)]
+
+
+def _rglru_inputs(card, B, S, W, dtype, seed):
+    """The sweep's distributions: a ~ U(0.2, 0.999), b ~ N(0, 1)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    a = 0.2 + 0.799 * torch.rand((B, S, W), generator=gen, device=card)
+    b = torch.randn((B, S, W), generator=gen, device=card)
+    return a.to(dtype), b.to(dtype)
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rglru_kernel_matches_plain(card, B, S, W, dtype):
+    """K2 against ``rglru_ref`` at the sweep's 1e-4 (fp32), 2e-2 (bf16
+    output rounding); the time loop too at the small shapes."""
+    a, b = _rglru_inputs(card, B, S, W, DTYPES[dtype], seed=S + W)
+    before = k2.rglru_scan.launches
+    out = k2.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert k2.rglru_scan.launches == before + 1
+    assert out.dtype == DTYPES[dtype] and out.shape == (B, S, W)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=1e-4, atol=1e-4)
+    refs = [rglru_ref(a, b)] + ([rglru_sequential(a, b)] if S * W <= 512 * 384 else [])
+    for ref in refs:
+        np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(), **tol)
+
+
+def test_rglru_kernel_reads_strided_views(card):
+    """a and b as views of one (B, S, 2, W) tensor: strided time axes."""
+    ab = 0.2 + 0.799 * torch.rand((2, 192, 2, 160), device=card)
+    a, b = ab.unbind(2)
+    np.testing.assert_allclose(k2.rglru_scan(a, b).cpu().numpy(), rglru_ref(a, b).cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_rglru_kernel_gradient_matches_plain(card):
+    """``linear_recurrence`` on the card: K2 forward, ``rglru_ref`` backward,
+    against autograd through ``rglru_ref`` alone."""
+    a, b = (t.requires_grad_() for t in _rglru_inputs(card, 2, 256, 256, torch.float32, 5))
+    w = torch.randn((2, 256, 256), device=card)
+    before = k2.rglru_scan.launches
+    out = linear_recurrence(a, b)
+    assert out.grad_fn is not None and k2.rglru_scan.launches == before + 1
+    got = torch.autograd.grad((out * w).sum(), (a, b))
+    want = torch.autograd.grad((rglru_ref(a, b) * w).sum(), (a, b))
+    for name, g, r in zip("ab", got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=1e-3, atol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["dtype", "mixed", "layout", "device", "shape"])
+def test_rglru_kernel_refuses_what_it_does_not_take(card, case):
+    a, b = _rglru_inputs(card, 1, 64, 32, torch.float32, seed=1)
+    if case == "dtype":
+        a, b = a.half(), b.half()
+    if case == "mixed":
+        b = b.bfloat16()
+    if case == "layout":
+        a, b = a.transpose(1, 2), b.transpose(1, 2)
+    if case == "device":
+        b = b.cpu()
+    if case == "shape":
+        b = b[:, :32]
+    with pytest.raises(ValueError):
+        k2.rglru_scan(a, b)

@@ -31,7 +31,10 @@ from repro_torch.serving.cache_utils import extend_cache
 from repro_torch.weights import params_from_jax
 
 TOL = dict(rtol=2e-3, atol=2e-3)
-CASES = [("whisper-large-v3", False), ("whisper-large-v3", True), ("internlm2-20b", False)]
+# recurrentgemma-9b's 12-token sequences stay below its 16-token window and
+# the K2 gate (S % 64), so JAX never reaches its broken Pallas K2 (ROADMAP C)
+CASES = [("whisper-large-v3", False), ("whisper-large-v3", True), ("internlm2-20b", False),
+         ("recurrentgemma-9b", False), ("recurrentgemma-9b", True)]
 
 
 def _configs(arch, use_pallas):
@@ -135,7 +138,7 @@ def test_extend_cache_ring_roll_matches_jax():
 
 @pytest.mark.parametrize("defs,item", [
     ([LayerDef("rwkv", "rwkv_cm")], "A8.2"),
-    ([LayerDef("recurrent", "dense")], "A8.1"),
+    ([LayerDef("mla", "dense")], "A8.3"),
     ([LayerDef("attn", "moe")], "A8.3"),
     ([LayerDef("cross_only", "dense")], "A8.5"),
 ])

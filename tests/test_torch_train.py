@@ -38,14 +38,20 @@ from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.data import SyntheticTokenDataset
 from repro_torch.weights import params_from_jax
 
-ARCHS = ["rwkv6-7b", "internlm2-20b"]
+ARCHS = ["rwkv6-7b", "internlm2-20b", "recurrentgemma-9b"]
 GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 
 
 def _configs(arch, **kw):
-    kw = dict(dict(vocab_size=128, attn_chunk=64, num_layers=2), **kw)
-    return (dataclasses.replace(jax_reduced(jax_get_config(arch)), **kw),
-            reduced(get_config(arch), **kw))
+    # three layers of recurrentgemma-9b: one (recurrent, recurrent, local_attn) cycle
+    layers = 3 if arch == "recurrentgemma-9b" else 2
+    kw = dict(dict(vocab_size=128, attn_chunk=64, num_layers=layers), **kw)
+    jcfg = dataclasses.replace(jax_reduced(jax_get_config(arch)), **kw)
+    if arch == "recurrentgemma-9b":
+        # the reference's Pallas K2 fails on this JAX version (ROADMAP C):
+        # the JAX side takes its plain associative scan, which K2 is held to
+        jcfg = dataclasses.replace(jcfg, use_pallas=False)
+    return jcfg, reduced(get_config(arch), **kw)
 
 
 def _params(jcfg, seed):
@@ -168,6 +174,30 @@ def test_apply_updates_matches_jax(moment_dtype):
         _assert_tree_close(dict(cm.tree_leaves(tstate.nu)), _flatten(jstate.nu), **tol)
     assert tp["embed"].dtype == torch.bfloat16
     assert all(t.dtype == getattr(torch, moment_dtype) for _, t in cm.tree_leaves(tstate.mu))
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_apply_updates_in_slices_is_exact(monkeypatch, moment_dtype):
+    """The update runs leaf by leaf in slices of ``UPDATE_SLICE`` elements:
+    slices of 7 (ragged last slice, several per leaf) give the same bits,
+    written in place, as one slice per leaf."""
+    from repro_torch.training import optimizer
+
+    rng = np.random.default_rng(9)
+    p0 = {k: rng.normal(size=shape).astype(np.float32) for k, (shape, _) in _LEAVES.items()}
+    g = params_from_jax({k: (rng.normal(size=v.shape) * 0.3).astype(np.float32)
+                         for k, v in p0.items()}, device="cpu")
+    hp = AdamWConfig(lr=1e-2, warmup_steps=1)
+    out = []
+    for slice_len in (1 << 24, 7):
+        monkeypatch.setattr(optimizer, "UPDATE_SLICE", slice_len)
+        tp = params_from_jax(p0, device="cpu")
+        state = init_opt_state(tp, moment_dtype)
+        for _ in range(2):
+            tp, state, _ = apply_updates(hp, tp, g, state)
+        out.append([t for tree in (tp, state.mu, state.nu) for _, t in cm.tree_leaves(tree)])
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_train_steps_match_jax():
