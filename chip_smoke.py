@@ -9,10 +9,14 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    with nvcc, one process per source, all started together.
 2. kernels — flash attention (K1) against its plain PyTorch version at every
    shape of ``tests/test_kernels.py``'s flash sweep and block-shape cases,
-   and at the whisper-large-v3 encoder shape, where the kernel, the plain
-   version and PyTorch's ``scaled_dot_product_attention`` (a yardstick the
-   port never calls) are timed with CUDA events; K1's gradient (kernel
-   forward, plain backward) against autograd through the plain version.
+   at head dim 192, at a ragged shape (S = T = 333, hd 128), and at the
+   whisper-large-v3 encoder shape; there and at the causal GQA attention of
+   internlm2-20b (hd 128) and nemotron-4-340b (hd 192) at 4096 tokens, the
+   kernel, the plain version and PyTorch's ``scaled_dot_product_attention``
+   (a yardstick the port never calls) are timed by their device time
+   (``torch.profiler``; K1 and SDPA also back to back with CUDA events),
+   each beside its bound; K1's gradient (kernel forward, plain backward)
+   against autograd through the plain version.
 3. rwkv6 kernel — the RWKV-6 chunked scan (K3) against the sequential
    oracle ``rwkv6_ref`` at every shape of ``test_rwkv6_kernel_sweep`` in
    both dtypes, the chunk-32-vs-128 continuity case and the rwkv6-7b
@@ -74,6 +78,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -91,8 +96,12 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SERVING_SHAPE = (1, 1500, 20, 20, 64)          # B, S, H, K, hd of the whisper encoder
+#: tests/test_kernels.py's flash sweep, head dim 192, ragged S and T at hd 128
 SWEEP = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 512, 8, 1, 128),
-         (2, 192, 6, 3, 32), (1, 128, 4, 2, 128)]
+         (2, 192, 6, 3, 32), (1, 128, 4, 2, 128), (1, 256, 4, 2, 192), (2, 333, 8, 2, 128)]
+#: K1 timed beside the serving shape: causal GQA attention of one layer at
+#: 4096 tokens (B, S, H, K, hd): internlm2-20b, nemotron-4-340b
+ATTN_SHAPES = {"internlm2-20b": (1, 4096, 48, 8, 128), "nemotron-4-340b": (1, 4096, 96, 8, 192)}
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}   # (rtol, atol)
 #: K1's gradient: (rtol, atol)
 GRAD_TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
@@ -137,6 +146,61 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of ``fn()``: the kernels it launches, summed by
+    ``torch.profiler`` over ``iters`` calls, per call.  Unlike ``cuda_ms`` it
+    leaves out the gaps between kernels, which a host that enqueues more
+    slowly than the card runs (a short kernel behind a Python wrapper) would
+    otherwise count.  The profiler now and then records no device activity
+    for a session; it is asked again, and if it still sees nothing the time
+    is taken by ``queued_ms`` and counted in ``TIMER_FALLBACKS``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / iters / 1e3
+    TIMER_FALLBACKS.append(getattr(fn, "__name__", "fn"))
+    return queued_ms(fn, iters)
+
+
+#: calls of ``device_ms`` that the profiler saw no device time for
+TIMER_FALLBACKS: list = []
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn()`` by CUDA events, with the ``iters`` calls
+    queued behind a spin on the card so that they run back to back: the
+    gaps a slow host leaves between launches are not counted.  Raises if
+    the host was still enqueueing when the spin ended."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spin_start, spin_end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    spin_start.record()
+    torch.cuda._sleep(200_000_000)        # about 0.1 s at the H100's clocks
+    spin_end.record()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if host_ms >= spin_start.elapsed_time(spin_end):
+        raise AssertionError(f"queued_ms: enqueueing took {host_ms:.1f} ms, longer than "
+                             "the spin ahead of it")
+    return start.elapsed_time(end) / iters
+
+
 def attention_inputs(B, S, H, K, hd, dtype, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
@@ -158,7 +222,8 @@ def check_close(name, out, ref, dtype, tol=TOL) -> float:
 
 
 def kernel_phase(fa, mha, mha_ref) -> dict:
-    """K1 against its plain version; times at the serving shape."""
+    """K1 against its plain version; times at the serving shape and at the
+    two causal GQA shapes of ``ATTN_SHAPES``."""
     cases = 0
     for i, (B, S, H, K, hd) in enumerate(SWEEP):
         for causal in (True, False):
@@ -185,24 +250,69 @@ def kernel_phase(fa, mha, mha_ref) -> dict:
     torch.cuda.synchronize()
     cases += 2
 
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    kernel_ms = cuda_ms(lambda: mha(q, k, v, causal=False))
-    plain_ms = cuda_ms(lambda: mha_ref(q, k, v, causal=False), iters=5)
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
-    kernel_ms_fp32 = cuda_ms(lambda: mha(q32, k32, v32, causal=False), iters=5)
-    flops = 4 * B * H * S * S * hd                        # QK^T and PV, bidirectional
-    nbytes = 4 * B * S * H * hd * q.element_size()        # q, k, v read once, o written once
-    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    bound_by = "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes"
-    bound_ms_fp32 = max(flops / PEAK_FP32_FLOPS, 2 * nbytes / PEAK_BYTES) * 1e3
-    res = dict(cases=cases, shape=list(SERVING_SHAPE), max_abs_err=err,
-               max_abs_err_fp32=err32, kernel_ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-               kernel_ms_fp32=kernel_ms_fp32, bound_ms_fp32=bound_ms_fp32,
-               flops=flops, bytes=nbytes)
+    res = dict(cases=cases, shape=list(SERVING_SHAPE), max_abs_err=err, max_abs_err_fp32=err32,
+               **flash_times(fa, mha_ref, q, k, v, causal=False))
+    flops, nbytes = attention_work(q, k, causal=False)
+    res["kernel_ms_fp32"] = cuda_ms(lambda: mha(q32, k32, v32, causal=False), iters=5)
+    res["bound_ms_fp32"] = max(flops / PEAK_FP32_FLOPS, 2 * nbytes / PEAK_BYTES) * 1e3
+    del q, k, v, q32, k32, v32, out, ref
+    res["shapes"] = {}
+    for arch, (B, S, H, K, hd) in ATTN_SHAPES.items():
+        q, k, v = attention_inputs(B, S, H, K, hd, torch.bfloat16, seed=8)
+        res["shapes"][arch] = dict(shape=[B, S, H, K, hd], causal=True,
+                                   **flash_times(fa, mha_ref, q, k, v, causal=True))
+        del q, k, v
+        torch.cuda.empty_cache()
     res["grad_max_rel_err"] = flash_grad_check(mha, mha_ref)
+    res["smem_bytes_bf16"] = {hd: fa.smem_bytes(torch.bfloat16, hd) for hd in fa.HEAD_DIMS}
+    res["timer_fallbacks"] = list(TIMER_FALLBACKS)
     emit({"phase": "kernels", **res})
     return res
+
+
+def attention_work(q, k, causal: bool) -> tuple:
+    """(FLOPs, bytes) of attention on these inputs: 4·hd FLOPs (QK^T and PV)
+    per visible (row, column) pair of each q head — with a bottom-right
+    causal mask row i sees min(T, i + T - S + 1) columns, about half — and q,
+    k, v read once and o written once."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    pairs = sum(min(T, i + T - S + 1) for i in range(S)) if causal else S * T
+    flops = 4 * B * H * pairs * hd
+    nbytes = (2 * B * S * H + 2 * B * T * K) * hd * q.element_size()
+    return flops, nbytes
+
+
+def flash_times(fa, mha_ref, q, k, v, causal: bool) -> dict:
+    """K1, its plain version and PyTorch's ``scaled_dot_product_attention``
+    (a yardstick the port never calls) on the same bf16 inputs, with the
+    bound; K1 is checked against the plain version first."""
+    check_close(f"K1 at {tuple(q.shape)} causal={causal}",
+                fa.flash_attention(q, k, v, causal=causal), mha_ref(q, k, v, causal=causal),
+                q.dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+
+    def kernel():
+        return fa.flash_attention(q, k, v, causal=causal)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                                enable_gqa=gqa)
+
+    kernel_ms, library_ms = device_ms(kernel), device_ms(library)
+    with torch.no_grad():
+        plain_ms = device_ms(lambda: mha_ref(q, k, v, causal=causal), iters=3)
+    # back to back with CUDA events as well: where the host enqueues more
+    # slowly than the kernel runs, these read the host's rate
+    kernel_events_ms, library_events_ms = cuda_ms(kernel), cuda_ms(library)
+    flops, nbytes = attention_work(q, k, causal)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                kernel_events_ms=kernel_events_ms, library_events_ms=library_events_ms,
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops > t_bytes else "bytes",
+                flops=flops, bytes=nbytes, tflops=flops / kernel_ms / 1e9)
 
 
 def flash_grad_check(mha, mha_ref) -> dict:
@@ -810,6 +920,31 @@ def profile_window(eng, cfg, prompt_len: int = 16) -> dict:
     return device_profile(eng.drain)
 
 
+def ptxas_summary(log: str) -> list:
+    """One line per compiled kernel from ``nvcc -Xptxas -v``: its name
+    (demangled by ``c++filt`` where the toolkit's host tools have it), then
+    its registers, barriers and spills; warnings are kept as they are."""
+    names = re.findall(r"Compiling entry function '(\S+)'", log)
+    try:
+        shown = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        shown = names
+    readable = {n: d.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1] or n
+                for n, d in zip(names, shown)}
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", ln):
+            name = readable.get(m.group(1), m.group(1))
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}; {spill}")
+        elif "warning" in ln.lower():
+            out.append(ln.strip())
+    return out
+
+
 #: kernel wrappers by name, each with its ``launches`` count (filled by main)
 KERNELS: dict = {}
 #: the card, as nvidia-smi names it with its power limit (filled by main)
@@ -852,8 +987,7 @@ def main() -> int:
     with ThreadPoolExecutor(len(sources)) as pool:       # one nvcc per source, together
         libs = list(pool.map(build, sources))
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": {
-        str(lib.relative_to(ROOT)): [ln.strip() for ln in lib.with_suffix(".log").read_text()
-                                     .splitlines() if "registers" in ln or "spill" in ln]
+        str(lib.relative_to(ROOT)): ptxas_summary(lib.with_suffix(".log").read_text())
         for lib in libs}})
 
     seconds = {}
@@ -907,7 +1041,10 @@ def main() -> int:
         "launches": serving["k1_launches"], "max_abs_err": k1["max_abs_err"],
         "ms": k1["kernel_ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"]}, {
+        "library_ms": k1["library_ms"], "shapes": {
+            arch: {key: r[key] for key in ("shape", "kernel_ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by")}
+            for arch, r in k1["shapes"].items()}}, {
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru/rglru_scan.py:22",

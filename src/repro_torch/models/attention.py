@@ -12,10 +12,12 @@ in place: the caller's cache tensors are written, and returned.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.models import common as cm
@@ -115,12 +117,18 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: Optional[int] = N
     T, K = k.shape[1], k.shape[2]
     qg = q.reshape(B, S, K, H // K, hd)
     col_pos = torch.arange(T, dtype=torch.int64, device=q.device)
+    attend = functools.partial(_block_attend, causal=causal, window=window,
+                               kv_valid=kv_valid)
+    if torch.is_grad_enabled() and S > chunk:
+        # flash-style recompute, as the reference's jax.checkpoint over its
+        # blocks: without it autograd keeps every block's scores and softmax
+        # for backward — more than the full (B,S,H,T) attention matrix
+        attend = functools.partial(checkpoint, attend, use_reentrant=False)
     outs = []
     for s0 in range(0, S, chunk):
         row_pos = q_offset + torch.arange(s0, min(S, s0 + chunk), dtype=torch.int64,
                                           device=q.device)
-        outs.append(_block_attend(qg[:, s0:s0 + chunk], k, v, row_pos, col_pos,
-                                  causal=causal, window=window, kv_valid=kv_valid))
+        outs.append(attend(qg[:, s0:s0 + chunk], k, v, row_pos, col_pos))
     o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return o.reshape(B, S, H, hd)
 

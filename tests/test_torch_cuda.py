@@ -20,10 +20,12 @@ from repro_torch.kernels.rwkv6.ops import time_mix_chunked, time_mix_ref, time_m
 pytestmark = pytest.mark.cuda
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# tests/test_kernels.py's flash sweep, then the whisper-large-v3 encoder shape
+# tests/test_kernels.py's flash sweep, the whisper-large-v3 encoder shape,
+# head dim 16, head dim 192 (nemotron-4-340b), and ragged S and T at head
+# dim 128 (TMA's zero fill and the column mask)
 SHAPES = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 512, 8, 1, 128),
           (2, 192, 6, 3, 32), (1, 128, 4, 2, 128), (1, 1500, 20, 20, 64),
-          (3, 70, 4, 2, 16)]
+          (3, 70, 4, 2, 16), (1, 256, 4, 2, 192), (2, 333, 8, 2, 128)]
 
 
 @pytest.fixture

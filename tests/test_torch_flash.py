@@ -14,8 +14,9 @@ from repro_torch.kernels.flash_attention.ops import mha
 
 RNG = np.random.default_rng(42)
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+# tests/test_kernels.py's shapes, then head dim 192 (nemotron-4-340b)
 SWEEP = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 512, 8, 1, 128),
-         (2, 192, 6, 3, 32), (1, 128, 4, 2, 128)]
+         (2, 192, 6, 3, 32), (1, 128, 4, 2, 128), (1, 128, 4, 2, 192)]
 
 
 def _tol(dtype):
