@@ -18,10 +18,14 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    each beside its bound; K1's gradient (kernel forward, plain backward)
    against autograd through the plain version.
 3. rwkv6 kernel — the RWKV-6 chunked scan (K3) against the sequential
-   oracle ``rwkv6_ref`` at every shape of ``test_rwkv6_kernel_sweep`` in
-   both dtypes, the chunk-32-vs-128 continuity case and the rwkv6-7b
-   training shape (B=2, S=4096, H=64, hd=64, bf16), where the kernel and
-   both plain versions (sequential and chunked) are timed.
+   oracle ``rwkv6_ref`` and the sub-chunk-factored ``rwkv6_subchunked`` at
+   every shape of ``test_rwkv6_kernel_sweep`` in both dtypes, the
+   chunk-32-vs-128 continuity case, an extreme-decay case (lw in
+   [-30, -0.01], 1e-4) and the rwkv6-7b training shape (B=2, S=4096, H=64,
+   hd=64, bf16), where the kernel (device time and CUDA events) and both
+   plain versions (sequential and chunked) are timed, and
+   ``kernels/rwkv6/breakdown.py`` times K3 with one part taken out at a
+   time and reads its per-phase clocks.
 4. rglru kernel — the RG-LRU scan (K2) against ``rglru_ref`` (and the
    sequential loop) at every shape of ``test_rglru_kernel_sweep`` (1e-4, as
    there) and a bf16 case, then at recurrentgemma-9b's training shape
@@ -29,15 +33,15 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    where K2, ``rglru_ref`` and (at the sweep shapes) the sequential loop
    are timed; K2's gradient (kernel forward, ``rglru_ref`` backward)
    against autograd through ``rglru_ref``.
-4. serving — whisper-large-v3 at full width and depth (32 + 32 layers,
+5. serving — whisper-large-v3 at full width and depth (32 + 32 layers,
    d_model 1280, vocab 51866, 1500 frames) in bf16 with random seeded
    weights and ``use_pallas=True``: 16 requests through the continuous
    batching engine (``submit`` then ``drain``) and one ``generate`` group.
    Every encoder attention of every admission must have launched K1.
-5. parity — the full-width fp32 encoder, layer by layer, through the kernel
+6. parity — the full-width fp32 encoder, layer by layer, through the kernel
    and through the plain path from the same input; the largest difference
    must be <= 1e-3 (see ``parity_phase`` for why per layer).
-6. rg serving — recurrentgemma-9b at full width and depth (38 layers:
+7. rg serving — recurrentgemma-9b at full width and depth (38 layers:
    12 x (recurrent, recurrent, local_attn) + 2 recurrent; d_model 4096,
    lru_width 4096, 16 heads of 256 with 1 kv head, d_ff 12288, vocab
    256000, window 2048; 10.4 B parameters) in bf16 with random seeded
@@ -46,25 +50,25 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    ``generate`` group.  Most prompts are multiples of 64 and two are longer
    than the window; K2 must launch 26 times (once per recurrent layer) for
    every prefill whose length is a multiple of 64 and never otherwise.
-7. rg decode parity — full width in fp32 at depth 3: a 2112-token prompt
+8. rg decode parity — full width in fp32 at depth 3: a 2112-token prompt
    (past the 2048 window, so the prefill's window is ring-rolled) decoded
    for 8 tokens; every step's logits against the full forward's, within
    2e-3.
-8. train — rwkv6-7b at full width (d_model 4096, 64 heads of 64, d_ff
+9. train — rwkv6-7b at full width (d_model 4096, 64 heads of 64, d_ff
    14336, vocab 65536) cut to 4 of 32 layers, bf16 params, fp32 moments,
    ``use_pallas=True``: 3 steps of the port's launcher loop at global batch
    8 x 4096 tokens in 4 microbatches.  K3 must launch once per layer and
    microbatch (48 times; the backward recomputes through the plain chunked
    version), loss and grad norm must be finite and every layer's mixer
    parameters must receive a gradient.
-9. rg train — recurrentgemma-9b at full width cut to 3 of 38 layers (one
-   (recurrent, recurrent, local_attn) cycle; 2.76 B parameters with the
-   untied 256000 x 4096 embedding and unembedding), bf16 params, fp32
-   moments, ``use_pallas=True``: 3 steps of 8 x 4096 tokens in 4
-   microbatches.  K2 must launch once per recurrent layer and microbatch
-   (24 times); loss and grad norm finite; every recurrent layer's ``lam``,
-   ``w_a`` and ``w_x`` must receive a gradient.
-10. train-parity — rwkv6-7b at full width in fp32, depth 2, B=1, S=1024:
+10. rg train — recurrentgemma-9b at full width cut to 3 of 38 layers (one
+    (recurrent, recurrent, local_attn) cycle; 2.76 B parameters with the
+    untied 256000 x 4096 embedding and unembedding), bf16 params, fp32
+    moments, ``use_pallas=True``: 3 steps of 8 x 4096 tokens in 4
+    microbatches.  K2 must launch once per recurrent layer and microbatch
+    (24 times); loss and grad norm finite; every recurrent layer's ``lam``,
+    ``w_a`` and ``w_x`` must receive a gradient.
+11. train-parity — rwkv6-7b at full width in fp32, depth 2, B=1, S=1024:
     the loss and its grads through K3 against the plain path, within 5e-3
     on the loss and 1e-3 relative on the grad norm.  Then the same for
     recurrentgemma-9b at depth 3 through K2.
@@ -109,6 +113,9 @@ GRAD_TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 RWKV_SWEEP = [(1, 64, 2, 32, 32), (2, 128, 4, 64, 32), (1, 256, 2, 16, 64)]
 #: the largest difference relative to the largest output, as that sweep
 RWKV_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+#: lw in [-30, -0.01]: the plain chunked form is about 2e-5 from float64 there
+#: (tests/test_torch_rwkv6.py::test_subchunked_matches_float64_at_extreme_decay)
+RWKV_EXTREME_LIMIT = 1e-4
 TRAIN_SHAPE = (2, 4096, 64, 64)                 # B, S, H, hd of one rwkv6-7b microbatch
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 3, 8, 4096
 #: tests/test_kernels.py::test_rglru_kernel_sweep (B, S, W)
@@ -348,56 +355,95 @@ def rwkv_inputs(B, S, H, hd, dtype, seed, lw_high=4.0):
     return r, k, v, lw, u
 
 
-def check_rel(name, out, ref, limit) -> float:
+def check_rel(name, out, ref, limit, what="rwkv6_ref") -> float:
     out, ref = out.float(), ref.float()
     err = ((out - ref).abs().max() / (ref.abs().max() + 1e-6)).item()
     if not torch.isfinite(out).all() or not err < limit:
-        raise AssertionError(f"{name}: K3 disagrees with rwkv6_ref (relative error "
+        raise AssertionError(f"{name}: K3 disagrees with {what} (relative error "
                              f"{err:.3e}, limit {limit:.0e})")
     return err
 
 
 def rwkv6_work(B, S, H, hd, C, elem_bytes):
-    """(FLOPs, bytes) of the chunked scan on these shapes: per chunk the
-    strict lower triangle of the pairwise matrix (sub, exp, 2 mul, add per
-    channel), its diagonal, A.V over the triangle, the decayed reads r.S and
-    the state update S*decay + k^T.v, plus the decay folds; r, k, v, y in
-    their dtype and lw in fp32, each read or written once."""
+    """(FLOPs, of them the products', bytes) of the chunked scan on these
+    shapes.  Per chunk: the strict lower triangle of the pairwise matrix
+    (sub, exp, 2 mul, add per channel), its diagonal, A.V over the triangle
+    and the diagonal, the decayed reads r'.S and the state update
+    S*decay + k'^T.v, plus the decay folds.  The products are A.V, r'.S and
+    k'^T.v; the rest (pairwise terms, diagonal, folds, state decay) is work
+    for the FMA units.  r, k, v, y in their dtype and lw in fp32, each read
+    or written once."""
     pairs = C * (C - 1) // 2
-    per_chunk = (5 * pairs * hd + 3 * C * hd + 2 * (pairs + C) * hd + 2 * C * hd * hd
-                 + 4 * C * hd + hd * hd * (1 + 2 * C))
-    flops = B * H * (S // C) * per_chunk
+    products = 2 * (pairs + C) * hd + 2 * C * hd * hd + 2 * C * hd * hd
+    rest = 5 * pairs * hd + 3 * C * hd + 4 * C * hd + hd * hd
+    chunks = B * H * (S // C)
     nbytes = B * S * H * hd * (4 * elem_bytes + 4) + H * hd * 4
-    return flops, nbytes
+    return chunks * (products + rest), chunks * products, nbytes
 
 
-def rwkv6_kernel_phase(k3, time_mix_scan, time_mix_ref, time_mix_chunked) -> dict:
-    """K3 against the sequential oracle; times at the training shape."""
+def rwkv6_bound(flops, products, nbytes, dtype) -> dict:
+    """The least time for K3's work: the FMA units' share at the fp32 rate
+    plus the products at the tensor rate of r's dtype (989 TFLOP/s bf16;
+    fp32 inputs are held to fp32 accuracy, counted at 67), against the bytes
+    at the memory rate.  ``bound_ms_fp32_units`` counts all of it at the
+    fp32 rate, the count this phase reported before the products ran on
+    tensor cores."""
+    tensor = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_ops = (flops - products) / PEAK_FP32_FLOPS + products / tensor
+    t_bytes = nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops > t_bytes else "bytes",
+                bound_ops_ms=t_ops * 1e3, bound_bytes_ms=t_bytes * 1e3,
+                bound_ms_fp32_units=max(flops / PEAK_FP32_FLOPS, t_bytes) * 1e3)
+
+
+def rwkv6_kernel_phase(k3, k3_breakdown, time_mix_scan, time_mix_ref, time_mix_chunked,
+                       rwkv6_subchunked) -> dict:
+    """K3 against the sequential oracle and the sub-chunk-factored plain
+    form; times and a breakdown at the training shape."""
+
+    def subchunked(r, k, v, lw, u, chunk=32):
+        t = [x.transpose(1, 2) for x in (r, k, v, lw)]
+        return rwkv6_subchunked(*t, u, chunk=chunk).transpose(1, 2)
+
+    def check(name, out, args, limit, chunk=32):
+        err = check_rel(name, out, time_mix_ref(*args), limit)
+        check_rel(name, out, subchunked(*args, chunk=chunk), limit, "rwkv6_subchunked")
+        return err
+
     cases = 0
     for i, (B, S, H, hd, chunk) in enumerate(RWKV_SWEEP):
         for dtype in (torch.float32, torch.bfloat16):
             args = rwkv_inputs(B, S, H, hd, dtype, seed=i)
-            check_rel(f"sweep {(B, S, H, hd, chunk, dtype)}", time_mix_scan(*args, chunk=chunk),
-                      time_mix_ref(*args), RWKV_LIMIT[dtype])
+            check(f"sweep {(B, S, H, hd, chunk, dtype)}", time_mix_scan(*args, chunk=chunk), args,
+                  RWKV_LIMIT[dtype], chunk)
             cases += 1
     args = rwkv_inputs(1, 128, 2, 32, torch.float32, seed=5, lw_high=1.0)
     o32, o128 = time_mix_scan(*args, chunk=32), time_mix_scan(*args, chunk=128)
     continuity = check_rel("continuity 32 vs 128", o32, o128, RWKV_LIMIT[torch.float32])
     check_rel("continuity 128", o128, time_mix_ref(*args), RWKV_LIMIT[torch.float32])
-    cases += 2
+    # strong decay: both factors of the sub-chunk split stay <= 1; the plain
+    # chunked form itself is about 2e-5 (chunk 32) from float64 there
+    args = rwkv_inputs(1, 512, 4, 64, torch.float32, seed=6, lw_high=30.0)
+    extreme = check("extreme decay", time_mix_scan(*args), args, RWKV_EXTREME_LIMIT)
+    cases += 3
 
     B, S, H, hd = TRAIN_SHAPE
     args = rwkv_inputs(B, S, H, hd, torch.bfloat16, seed=9)
     out = time_mix_scan(*args)
     with torch.no_grad():
         ref = time_mix_ref(*args)
-    rel = check_rel("training shape bf16", out, ref, RWKV_LIMIT[torch.bfloat16])
+        rel = check_rel("training shape bf16", out, ref, RWKV_LIMIT[torch.bfloat16])
+        rel_sub = check_rel("training shape bf16", out, subchunked(*args),
+                            RWKV_LIMIT[torch.bfloat16], "rwkv6_subchunked")
     abs_err = (out.float() - ref.float()).abs().max().item()
     cases += 1
     torch.cuda.synchronize()
+    del ref
 
     with torch.no_grad():
-        kernel_ms = cuda_ms(lambda: time_mix_scan(*args), iters=10)
+        kernel_ms = device_ms(lambda: time_mix_scan(*args), iters=20)
+        kernel_events_ms = cuda_ms(lambda: time_mix_scan(*args), iters=20)
         chunked_ms = cuda_ms(lambda: time_mix_chunked(*args), iters=3, warmup=1)
         sequential_ms = cuda_ms(lambda: time_mix_ref(*args), iters=1, warmup=1)
     # what one layer and microbatch of the train step pays: K3 forward, then
@@ -406,15 +452,18 @@ def rwkv6_kernel_phase(k3, time_mix_scan, time_mix_ref, time_mix_chunked) -> dic
     g = torch.randn_like(out)
     fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(time_mix_scan(*leaves), leaves, g),
                          iters=2, warmup=1)
-    flops, nbytes = rwkv6_work(B, S, H, hd, 32, 2)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    del leaves, g
+    flops, products, nbytes = rwkv6_work(B, S, H, hd, 32, 2)
     res = dict(cases=cases, shape=list(TRAIN_SHAPE), chunk=32, max_abs_err=abs_err,
-               max_rel_err=rel, continuity_rel_err=continuity, kernel_ms=kernel_ms,
-               plain_chunked_ms=chunked_ms, plain_sequential_ms=sequential_ms,
-               fwd_bwd_ms=fwd_bwd_ms,
-               bound_ms=max(t_ops, t_bytes) * 1e3,
-               bound_by="operations" if t_ops > t_bytes else "bytes",
-               flops=flops, bytes=nbytes, smem_bytes=k3.smem_bytes(32, hd))
+               max_rel_err=rel, max_rel_err_subchunked=rel_sub, continuity_rel_err=continuity,
+               extreme_decay_rel_err=extreme, kernel_ms=kernel_ms,
+               kernel_events_ms=kernel_events_ms, plain_chunked_ms=chunked_ms,
+               plain_sequential_ms=sequential_ms, fwd_bwd_ms=fwd_bwd_ms,
+               **rwkv6_bound(flops, products, nbytes, torch.bfloat16),
+               flops=flops, product_flops=products, bytes=nbytes,
+               smem_bytes=k3.smem_bytes(hd, torch.bfloat16),
+               timer_fallbacks=list(TIMER_FALLBACKS))
+    res["breakdown"] = k3_breakdown()
     emit({"phase": "rwkv6_kernel", **res})
     return res
 
@@ -971,8 +1020,10 @@ def main() -> int:
     from repro_torch.kernels.rglru import rglru_scan as k2
     from repro_torch.kernels.rglru.ops import linear_recurrence
     from repro_torch.kernels.rglru.ref import rglru_ref, rglru_sequential
+    from repro_torch.kernels.rwkv6 import breakdown as k3_breakdown
     from repro_torch.kernels.rwkv6 import rwkv6_scan as k3
     from repro_torch.kernels.rwkv6.ops import time_mix_chunked, time_mix_ref, time_mix_scan
+    from repro_torch.kernels.rwkv6.ref import rwkv6_subchunked
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -984,11 +1035,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = (fa.SOURCE, k2.SOURCE, k3.SOURCE)
-    with ThreadPoolExecutor(len(sources)) as pool:       # one nvcc per source, together
+    with ThreadPoolExecutor(len(sources) + 1) as pool:   # one nvcc per source, together
+        k3_variants = pool.submit(k3_breakdown.build_variants)   # K3's breakdown, beside them
         libs = list(pool.map(build, sources))
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": {
-        str(lib.relative_to(ROOT)): ptxas_summary(lib.with_suffix(".log").read_text())
-        for lib in libs}})
+        k3_variants = k3_variants.result()
+    ptxas = {str(lib.relative_to(ROOT)): ptxas_summary(lib.with_suffix(".log").read_text())
+             for lib in libs}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": ptxas})
 
     seconds = {}
 
@@ -999,8 +1052,9 @@ def main() -> int:
         return out
 
     k1 = timed("kernels", kernel_phase, fa, mha, mha_ref)
-    k3_res = timed("rwkv6_kernel", rwkv6_kernel_phase, k3, time_mix_scan, time_mix_ref,
-                   time_mix_chunked)
+    k3_res = timed("rwkv6_kernel", rwkv6_kernel_phase, k3,
+                   lambda: k3_breakdown.breakdown(k3_variants), time_mix_scan, time_mix_ref,
+                   time_mix_chunked, rwkv6_subchunked)
     k2_res = timed("rglru_kernel", rglru_kernel_phase, k2, linear_recurrence, rglru_ref,
                    rglru_sequential)
     cfg = dataclasses.replace(get_config("whisper-large-v3"), use_pallas=True)
@@ -1059,9 +1113,12 @@ def main() -> int:
         "source": "src/repro_torch/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6/rwkv6_scan.py:24",
         "launches": train["launches"]["rwkv6_scan"], "max_abs_err": k3_res["max_abs_err"],
-        "ms": k3_res["kernel_ms"], "plain_ms": k3_res["plain_chunked_ms"],
+        "ms": k3_res["kernel_ms"], "ms_events": k3_res["kernel_events_ms"],
+        "plain_ms": k3_res["plain_chunked_ms"],
         "plain_sequential_ms": k3_res["plain_sequential_ms"],
         "bound_ms": k3_res["bound_ms"], "bound_by": k3_res["bound_by"],
+        "bound_ms_fp32_units": k3_res["bound_ms_fp32_units"],
+        "ptxas": ptxas[str(build(k3.SOURCE).relative_to(ROOT))],
         "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -11,6 +11,9 @@
   cum_{t-1} − cum_j (j < t) is formed as a difference, always ≤ 0, so
   ``exp`` never overflows.  K3's backward recomputes through it: the
   sequential scan would cost one Python step per token.
+- :func:`rwkv6_subchunked` — the chunked form with the pairwise decay
+  factored across sub-chunks (both factors ≤ 1), the arithmetic K3 runs on
+  its tensor cores; a test oracle only.
 """
 from __future__ import annotations
 
@@ -78,3 +81,46 @@ def rwkv6_chunked(r, k, v, lw, u, *, chunk: int = 32):
         raise ValueError(f"rwkv6: sequence {S} is not a multiple of chunk {chunk}")
     state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
     return chunk_scan(r, k, v, lw, u, state, chunk)[0]
+
+
+def rwkv6_subchunked(r, k, v, lw, u, *, chunk: int = 32, sub: int = 16):
+    """:func:`rwkv6_ref`'s signature; the chunked form with the pairwise decay
+    factored across sub-chunks of ``sub`` tokens, as K3 computes it.  A test
+    oracle only (the CPU path and the backward use :func:`rwkv6_chunked`).
+
+    Inside a diagonal sub-block the exponent stays the difference
+    cum[t-1] - cum[j] <= 0.  Across sub-blocks I > J it is split at p, the
+    last position of J: exp(cum[t-1] - cum[p]) * exp(cum[p] - cum[j]), both
+    factors <= 1 because j <= p <= t-1 and cum only falls, so the block is a
+    product (r_I * e^(cum[t-1]-cum[p])) (k_J * e^(cum[p]-cum[j]))^T.  Works in
+    float64 for float64 inputs, else in float32."""
+    B, H, S, hd = r.shape
+    if chunk < 1 or S % chunk or sub < 1:
+        raise ValueError(f"rwkv6: sequence {S} is not a multiple of chunk {chunk}")
+    wt = torch.float64 if r.dtype == torch.float64 else torch.float32
+    rf, kf, vf, lwf = (t.to(wt) for t in (r, k, v, lw))
+    uf = u.to(wt)[None, :, None, :]
+    state = torch.zeros((B, H, hd, hd), dtype=wt, device=r.device)
+    ys = []
+    for c0 in range(0, S, chunk):
+        rc, kc, vc, lc = (t[:, :, c0:c0 + chunk] for t in (rf, kf, vf, lwf))
+        cum = torch.cumsum(lc, dim=2)
+        cx = cum - lc                                              # cum[t-1]
+        A = torch.diag_embed((rc * uf * kc).sum(-1))               # the bonus diagonal
+        for i0 in range(0, chunk, sub):
+            ti = slice(i0, min(i0 + sub, chunk))
+            n = ti.stop - i0
+            tri = torch.tril(torch.ones((n, n), dtype=torch.bool, device=r.device), -1)
+            expn = cx[:, :, ti, None, :] - cum[:, :, None, ti, :]
+            pair = torch.exp(torch.where(tri[:, :, None], expn, float("-inf")))
+            A[:, :, ti, ti] += (rc[:, :, ti, None, :] * pair * kc[:, :, None, ti, :]).sum(-1)
+            for j0 in range(0, i0, sub):
+                tj = slice(j0, j0 + sub)
+                p = cum[:, :, j0 + sub - 1:j0 + sub]               # cum at J's last position
+                ra = rc[:, :, ti] * torch.exp(cx[:, :, ti] - p)
+                kb = kc[:, :, tj] * torch.exp(p - cum[:, :, tj])
+                A[:, :, ti, tj] = ra @ kb.transpose(-1, -2)
+        ys.append(A @ vc + (rc * torch.exp(cx)) @ state)
+        state = (state * torch.exp(cum[:, :, -1])[..., None]
+                 + (kc * torch.exp(cum[:, :, -1:] - cum)).transpose(-1, -2) @ vc)
+    return torch.cat(ys, dim=2).to(r.dtype)

@@ -16,6 +16,7 @@ from repro_torch.kernels.rglru.ops import linear_recurrence
 from repro_torch.kernels.rglru.ref import rglru_ref, rglru_sequential
 from repro_torch.kernels.rwkv6 import rwkv6_scan as k3
 from repro_torch.kernels.rwkv6.ops import time_mix_chunked, time_mix_ref, time_mix_scan
+from repro_torch.kernels.rwkv6.ref import rwkv6_subchunked
 
 pytestmark = pytest.mark.cuda
 
@@ -148,6 +149,61 @@ def test_rwkv6_kernel_gradient_matches_plain(card):
     for name, a, b in zip("r k v lw u".split(), got, want):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-3, atol=1e-4,
                                    err_msg=name)
+
+
+def _subchunked(r, k, v, lw, u, chunk, sub=16):
+    """``rwkv6_subchunked`` in the model layout."""
+    t = [x.transpose(1, 2) for x in (r, k, v, lw)]
+    return rwkv6_subchunked(*t, u, chunk=chunk, sub=sub).transpose(1, 2)
+
+
+# K3 tiles a chunk longer than 32 tokens by its largest divisor up to 32, and
+# pads a tile to a multiple of 16 rows: chunks 128, 48 and 24 exercise both
+@pytest.mark.parametrize("dtype,chunk", [("float32", 32), ("bfloat16", 32), ("float32", 128),
+                                         ("float32", 48), ("bfloat16", 24)])
+def test_rwkv6_kernel_extreme_decay(card, dtype, chunk):
+    """lw in [-30, -0.01]: both factors of the sub-chunk split stay <= 1.
+    Limit 1e-4 in fp32: the plain chunked form itself is about 2e-5 (chunk
+    32) to 6e-5 (chunk 128) from a float64 oracle there
+    (``tests/test_torch_rwkv6.py``); 2e-2 in bf16."""
+    args = _rwkv_inputs(card, 1, 384, 3, 64, DTYPES[dtype], seed=21, lw_high=30.0)
+    out = time_mix_scan(*args, chunk=chunk)
+    limit = 2e-2 if dtype == "bfloat16" else 1e-4
+    assert torch.isfinite(out.float()).all()
+    assert _rel_err(out, time_mix_ref(*args)) < limit
+    assert _rel_err(out, _subchunked(*args, chunk=chunk)) < limit
+
+
+def test_rwkv6_kernel_chunk_128_hd64_bf16(card):
+    args = _rwkv_inputs(card, 2, 512, 4, 64, torch.bfloat16, seed=22)
+    out = time_mix_scan(*args, chunk=128)
+    assert _rel_err(out, time_mix_ref(*args)) < 2e-2
+    assert _rel_err(out, _subchunked(*args, chunk=128, sub=8)) < 2e-2
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rwkv6_kernel_many_chunks(card, dtype):
+    """S = 4096: 128 tiles carry the state through the prefetched stage
+    buffers in turn."""
+    args = _rwkv_inputs(card, 1, 4096, 2, 64, DTYPES[dtype], seed=23)
+    out = time_mix_scan(*args)
+    assert _rel_err(out, time_mix_ref(*args)) < (2e-2 if dtype == "bfloat16" else 1e-5)
+
+
+@pytest.mark.parametrize("case", ["hd stride", "offset"])
+def test_rwkv6_kernel_reads_unaligned_views(card, case):
+    """Views the 16-byte copies cannot take (hd stride 2; rows one element
+    off 16-byte alignment) go through plain loads."""
+    B, S, H, hd = 2, 96, 3, 32
+    _, _, _, lw, u = _rwkv_inputs(card, B, S, H, hd, torch.float32, seed=24)
+    gen = torch.Generator(device=card).manual_seed(25)
+    if case == "hd stride":
+        base = torch.randn((3, B, S, H, 2 * hd), generator=gen, device=card)[..., ::2]
+    else:
+        base = torch.randn((3, B, S, H, hd + 1), generator=gen, device=card)[..., 1:]
+    r, k, v = base.unbind(0)
+    out = k3.rwkv6_scan(r, k, v, lw, u, chunk=32)
+    assert _rel_err(out, time_mix_ref(r, k, v, lw, u)) < 1e-5
 
 
 @pytest.mark.parametrize("case", ["hd", "ragged", "dtype", "device"])

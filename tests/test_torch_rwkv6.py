@@ -27,6 +27,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels.autodiff import kernel_with_ref_vjp
 from repro_torch.kernels.rwkv6 import rwkv6_scan as k3
 from repro_torch.kernels.rwkv6.ops import time_mix_chunked, time_mix_ref, time_mix_scan
+from repro_torch.kernels.rwkv6.ref import rwkv6_subchunked
 from repro_torch.models import ffn
 from repro_torch.models import rwkv6
 from repro_torch.weights import params_from_jax
@@ -113,6 +114,60 @@ def test_scan_grads_match_jax():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4, err_msg=name)
 
 
+def _subchunked(r, k, v, lw, u, chunk, sub):
+    """``rwkv6_subchunked`` in the model layout."""
+    t = [x.transpose(1, 2) for x in (r, k, v, lw)]
+    return rwkv6_subchunked(*t, u, chunk=chunk, sub=sub).transpose(1, 2)
+
+
+@pytest.mark.parametrize("sub", [16, 8])
+@pytest.mark.parametrize("B,S,H,hd,chunk", SWEEP)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_subchunked_matches_jax_kernel(sub, B, S, H, hd, chunk, dtype):
+    """K3's arithmetic (the pairwise decay factored across sub-chunks)
+    against the JAX kernel in interpret mode, at the sweep's limits."""
+    arrs, ref = _jax_scan((B, S, H, hd), dtype, chunk)
+    out = _subchunked(*_torch(arrs, DTYPES[dtype][1]), chunk, sub)
+    assert out.dtype == DTYPES[dtype][1] and out.shape == (B, S, H, hd)
+    assert _rel_err(out.float().numpy(), ref) < _limit(dtype)
+
+
+def _ref64(r, k, v, lw, u):
+    """The sequential recurrence in float64 (model layout, numpy)."""
+    B, S, H, hd = r.shape
+    state = np.zeros((B, H, hd, hd))
+    y = np.zeros((B, S, H, hd))
+    for t in range(S):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        y[:, t] = np.einsum("bhd,bhde->bhe", r[:, t], state + u[None, :, :, None] * kv)
+        state = state * np.exp(lw[:, t])[..., None] + kv
+    return y
+
+
+# Each limit is the plain chunked form's own fp32 error against float64 at
+# that decay (relative to the largest output): lw in [-30, -0.01] reaches
+# 1.9e-5 at chunk 32 and 6.2e-5 at chunk 128 on these inputs, where the fp32
+# prefix sum of lw sets the error and the factoring adds nothing (the
+# sub-chunked form errs the same); lw = -4 everywhere and lw in [-1e-3, 0]
+# stay below 1e-6.
+@pytest.mark.parametrize("decay,chunk,sub,limit", [
+    ("[-30, -0.01]", 32, 16, 1e-4), ("[-30, -0.01]", 32, 8, 1e-4),
+    ("[-30, -0.01]", 128, 16, 1e-4), ("[-30, -0.01]", 128, 8, 1e-4),
+    ("-4", 32, 16, 1e-5), ("-4", 128, 8, 1e-5),
+    ("[-1e-3, 0]", 32, 16, 1e-5), ("[-1e-3, 0]", 128, 8, 1e-5)])
+def test_subchunked_matches_float64_at_extreme_decay(decay, chunk, sub, limit):
+    rng = np.random.default_rng(11)
+    shape = (2, 256, 3, 64)
+    r, k, v = (rng.normal(size=shape) for _ in range(3))
+    lw = {"[-30, -0.01]": -rng.uniform(0.01, 30.0, size=shape), "-4": np.full(shape, -4.0),
+          "[-1e-3, 0]": -rng.uniform(0.0, 1e-3, size=shape)}[decay]
+    u = rng.normal(size=(3, 64))
+    ref = _ref64(r, k, v, lw, u)
+    out = _subchunked(*(torch.from_numpy(a).float() for a in (r, k, v, lw, u)), chunk, sub)
+    assert torch.isfinite(out).all()
+    assert _rel_err(out.numpy(), ref) < limit
+
+
 def test_kernel_with_ref_vjp_forwards_kernel_and_backprops_ref():
     """The autograd Function: forward is the kernel's output (here a stand-in
     that differs from the plain version by a constant), backward is the plain
@@ -137,8 +192,8 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_bad_shapes():
         k3.rwkv6_scan(r, k, v, lw, u, chunk=32)
     with pytest.raises(ValueError, match="multiple of chunk"):
         time_mix_scan(r, k, v, lw, u, chunk=48)
-    assert k3.smem_bytes(32, 64) == 54_532          # > 48 KB: the dynamic attribute
-    assert k3.smem_bytes(128, 64) <= k3.MAX_SMEM    # the continuity chunk fits
+    assert k3.smem_bytes(64, torch.bfloat16) == 111_152   # > 48 KB: the dynamic attribute
+    assert k3.smem_bytes(64, torch.float32) <= k3.MAX_SMEM  # every chunk: tiles of <= 32 tokens
 
 
 def _rwkv_configs(use_pallas):
