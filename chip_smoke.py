@@ -29,10 +29,15 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
 4. rglru kernel — the RG-LRU scan (K2) against ``rglru_ref`` (and the
    sequential loop) at every shape of ``test_rglru_kernel_sweep`` (1e-4, as
    there) and a bf16 case, then at recurrentgemma-9b's training shape
-   (B=2, S=4096, W=4096) and one serving prefill (B=1, S=2112, W=4096),
-   where K2, ``rglru_ref`` and (at the sweep shapes) the sequential loop
-   are timed; K2's gradient (kernel forward, ``rglru_ref`` backward)
-   against autograd through ``rglru_ref``.
+   (B=2, S=4096, W=4096), one serving prefill (B=1, S=2112, W=4096) and the
+   ``generate`` group's prefill (B=4, S=1024, W=4096), where K2 (device time
+   and CUDA events), the wrapper's host cost per call, a copy of the same
+   bytes (``torch.add(a, b, out=h)``: the card's practical streaming rate,
+   not a library call for the recurrence) and ``rglru_ref`` are timed, with
+   K2's launches by path (TMA or plain loads); the sequential loop at the
+   sweep shapes; K2's gradient (kernel forward, ``rglru_ref`` backward)
+   against autograd through ``rglru_ref``; and ``kernels/rglru/breakdown.py``
+   times K2 with one part taken out at a time and the design not kept.
 5. serving — whisper-large-v3 at full width and depth (32 + 32 layers,
    d_model 1280, vocab 51866, 1500 frames) in bf16 with random seeded
    weights and ``use_pallas=True``: 16 requests through the continuous
@@ -49,7 +54,8 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    max_seq=2304)``, 16 requests through ``submit``/``drain`` and one
    ``generate`` group.  Most prompts are multiples of 64 and two are longer
    than the window; K2 must launch 26 times (once per recurrent layer) for
-   every prefill whose length is a multiple of 64 and never otherwise.
+   every prefill whose length is a multiple of 64 and never otherwise, each
+   time on its TMA path.
 8. rg decode parity — full width in fp32 at depth 3: a 2112-token prompt
    (past the 2048 window, so the prefill's window is ring-rolled) decoded
    for 8 tokens; every step's logits against the full forward's, within
@@ -66,8 +72,8 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
     untied 256000 x 4096 embedding and unembedding), bf16 params, fp32
     moments, ``use_pallas=True``: 3 steps of 8 x 4096 tokens in 4
     microbatches.  K2 must launch once per recurrent layer and microbatch
-    (24 times); loss and grad norm finite; every recurrent layer's ``lam``,
-    ``w_a`` and ``w_x`` must receive a gradient.
+    (24 times, all on its TMA path); loss and grad norm finite; every
+    recurrent layer's ``lam``, ``w_a`` and ``w_x`` must receive a gradient.
 11. train-parity — rwkv6-7b at full width in fp32, depth 2, B=1, S=1024:
     the loss and its grads through K3 against the plain path, within 5e-3
     on the loss and 1e-3 relative on the grad norm.  Then the same for
@@ -123,6 +129,7 @@ RGLRU_SWEEP = [(1, 128, 128), (2, 256, 256), (1, 512, 384)]
 RGLRU_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}  # (rtol, atol)
 RGLRU_TRAIN_SHAPE = (2, 4096, 4096)             # B, S, W of one recurrentgemma-9b microbatch
 RGLRU_PREFILL_SHAPE = (1, 2112, 4096)           # a serving prefill past the 2048 window
+RGLRU_GROUP_SHAPE = (4, 1024, 4096)             # the rg serving ``generate`` group's prefill
 RG_TRAIN_LAYERS = 3                             # one (recurrent, recurrent, local_attn) cycle
 #: rg serving: 13 of the 16 prompts are multiples of 64; 2112 and 2150 pass the window
 RG_LENGTHS = (64, 128, 256, 384, 512, 640, 768, 1024, 1280, 1536, 1792, 2048, 2112, 2150,
@@ -484,9 +491,22 @@ def rglru_bound(B, S, W, elem_bytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
-def rglru_kernel_phase(k2, linear_recurrence, rglru_ref, rglru_sequential) -> dict:
+def host_us(fn, iters: int = 50) -> float:
+    """Host microseconds per call of ``fn``: the enqueue cost, read on the
+    host clock with the card idle at the start."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def rglru_kernel_phase(k2, k2_breakdown, linear_recurrence, rglru_ref, rglru_sequential) -> dict:
     """K2 against ``rglru_ref`` (and the time loop at the sweep's shapes);
-    times at the training and serving prefill shapes."""
+    times at the training, serving prefill and group prefill shapes."""
     sweep = []
     for i, (B, S, W) in enumerate(RGLRU_SWEEP):
         a, b = rglru_inputs(B, S, W, torch.float32, seed=i)
@@ -497,6 +517,7 @@ def rglru_kernel_phase(k2, linear_recurrence, rglru_ref, rglru_sequential) -> di
                     torch.float32, RGLRU_TOL)
         sweep.append(dict(shape=[B, S, W], max_abs_err=err,
                           kernel_ms=cuda_ms(lambda: k2.rglru_scan(a, b)),
+                          kernel_device_ms=device_ms(lambda: k2.rglru_scan(a, b)),
                           plain_ms=cuda_ms(lambda: rglru_ref(a, b), iters=5),
                           sequential_ms=cuda_ms(lambda: rglru_sequential(a, b), iters=1,
                                                 warmup=1)))
@@ -505,21 +526,32 @@ def rglru_kernel_phase(k2, linear_recurrence, rglru_ref, rglru_sequential) -> di
                            RGLRU_TOL)
     grad_err = rglru_grad_check(linear_recurrence, rglru_ref)
 
-    res = dict(cases=len(RGLRU_SWEEP) * 2 + 4, sweep=sweep, bf16_max_abs_err=bf16_err,
+    res = dict(cases=len(RGLRU_SWEEP) * 2 + 5, sweep=sweep, bf16_max_abs_err=bf16_err,
                grad_max_rel_err=grad_err)
-    for tag, shape in (("", RGLRU_TRAIN_SHAPE), ("_prefill", RGLRU_PREFILL_SHAPE)):
+    for tag, shape in (("", RGLRU_TRAIN_SHAPE), ("_prefill", RGLRU_PREFILL_SHAPE),
+                       ("_group", RGLRU_GROUP_SHAPE)):
         a, b = rglru_inputs(*shape, torch.float32, seed=9)
+        before = dict(k2.rglru_scan.path_launches)
         out = k2.rglru_scan(a, b)
+        res["path" + tag] = [p for p, n in k2.rglru_scan.path_launches.items()
+                             if n != before[p]]
         with torch.no_grad():
             ref = rglru_ref(a, b)
         res["max_abs_err" + tag] = check_close(f"rglru shape {shape}", out, ref, torch.float32,
                                                RGLRU_TOL)
         res["max_rel_err" + tag] = ((out - ref).abs().max() / ref.abs().max()).item()
+        del ref
+        h = torch.empty_like(a)
         with torch.no_grad():
-            res["kernel_ms" + tag] = cuda_ms(lambda: k2.rglru_scan(a, b))
+            res["kernel_ms" + tag] = device_ms(lambda: k2.rglru_scan(a, b))
+            res["kernel_events_ms" + tag] = cuda_ms(lambda: k2.rglru_scan(a, b))
+            res["host_us_per_call" + tag] = host_us(lambda: k2.rglru_scan(a, b))
+            res["copy_ceiling_ms" + tag] = device_ms(lambda: torch.add(a, b, out=h))
             res["plain_ms" + tag] = cuda_ms(lambda: rglru_ref(a, b), iters=5)
         res["bound_ms" + tag], res["bound_by" + tag] = rglru_bound(*shape, 4)
         res["shape" + tag] = list(shape)
+        if res["path" + tag] != ["tma"]:
+            raise AssertionError(f"K2 at {shape} took the {res['path' + tag]} path, not TMA")
     # what one recurrent layer and microbatch of the train step pays: K2
     # forward, then the backward recomputing through the doubling scan
     leaves = [t.detach().requires_grad_() for t in rglru_inputs(*RGLRU_TRAIN_SHAPE,
@@ -527,6 +559,12 @@ def rglru_kernel_phase(k2, linear_recurrence, rglru_ref, rglru_sequential) -> di
     g = torch.randn(RGLRU_TRAIN_SHAPE, device="cuda")
     res["fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(linear_recurrence(*leaves),
                                                             leaves, g), iters=3, warmup=1)
+    del leaves, g
+    res["breakdown"] = k2_breakdown()
+    if not max(res["breakdown"]["look_back_max_abs_diff"].values()) <= RGLRU_TOL[torch.float32][1]:
+        raise AssertionError(f"K2's look-back design disagrees with the kernel: "
+                             f"{res['breakdown']['look_back_max_abs_diff']}")
+    res["timer_fallbacks"] = list(TIMER_FALLBACKS)
     emit({"phase": "rglru_kernel", **res})
     return res
 
@@ -653,6 +691,8 @@ def rg_serving_phase(cfg) -> dict:
     k2_launches = res["launches"]["rglru_scan"]
     if k2_launches != n_rec * sum(S % 64 == 0 for S, _ in prefills):
         raise AssertionError(f"K2 launched {k2_launches} times over the serving run")
+    if res["launches"]["rglru_scan/tma"] != k2_launches:
+        raise AssertionError(f"K2's launches by path in serving: {res['launches']}")
     res.update(info, recurrent_layers=n_rec, k2_launches=k2_launches,
                k2_prefills=sum(S % 64 == 0 for S, _ in prefills),
                longest_prompt=max(RG_LENGTHS), window=cfg.local_window)
@@ -1003,10 +1043,17 @@ CARD = ["not read"]
 def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        for path in getattr(fn, "path_launches", ()):
+            fn.path_launches[path] = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Launches by kernel, and by kernel and path (``name/path``) where the
+    wrapper counts its paths."""
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    for name, fn in KERNELS.items():
+        counts.update((f"{name}/{path}", n) for path, n in getattr(fn, "path_launches", {}).items())
+    return counts
 
 
 def main() -> int:
@@ -1017,6 +1064,7 @@ def main() -> int:
     from repro_torch.kernels.build import build
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ops import mha, mha_ref
+    from repro_torch.kernels.rglru import breakdown as k2_breakdown
     from repro_torch.kernels.rglru import rglru_scan as k2
     from repro_torch.kernels.rglru.ops import linear_recurrence
     from repro_torch.kernels.rglru.ref import rglru_ref, rglru_sequential
@@ -1035,10 +1083,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = (fa.SOURCE, k2.SOURCE, k3.SOURCE)
-    with ThreadPoolExecutor(len(sources) + 1) as pool:   # one nvcc per source, together
-        k3_variants = pool.submit(k3_breakdown.build_variants)   # K3's breakdown, beside them
+    with ThreadPoolExecutor(len(sources) + 2) as pool:   # one nvcc per source, together
+        # the breakdowns' variants of K3 and K2, beside them
+        k3_variants = pool.submit(k3_breakdown.build_variants)
+        k2_variants = pool.submit(k2_breakdown.build_variants)
         libs = list(pool.map(build, sources))
-        k3_variants = k3_variants.result()
+        k3_variants, k2_variants = k3_variants.result(), k2_variants.result()
     ptxas = {str(lib.relative_to(ROOT)): ptxas_summary(lib.with_suffix(".log").read_text())
              for lib in libs}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": ptxas})
@@ -1055,7 +1105,8 @@ def main() -> int:
     k3_res = timed("rwkv6_kernel", rwkv6_kernel_phase, k3,
                    lambda: k3_breakdown.breakdown(k3_variants), time_mix_scan, time_mix_ref,
                    time_mix_chunked, rwkv6_subchunked)
-    k2_res = timed("rglru_kernel", rglru_kernel_phase, k2, linear_recurrence, rglru_ref,
+    k2_res = timed("rglru_kernel", rglru_kernel_phase, k2,
+                   lambda: k2_breakdown.breakdown(k2_variants), linear_recurrence, rglru_ref,
                    rglru_sequential)
     cfg = dataclasses.replace(get_config("whisper-large-v3"), use_pallas=True)
     serving = timed("serving", serving_phase, cfg)
@@ -1073,6 +1124,8 @@ def main() -> int:
     rg_train = timed("rg_train", train_phase, rg_train_cfg, k2.rglru_scan,
                      n_rec * rg_train_cfg.microbatches * TRAIN_STEPS,
                      lambda path: path.rsplit("/", 1)[-1] in ("lam", "w_a", "w_x"))
+    if rg_train["launches"]["rglru_scan/tma"] != rg_train["launches"]["rglru_scan"]:
+        raise AssertionError(f"K2's launches by path in training: {rg_train['launches']}")
     timed("train_parity", train_parity_phase, "rwkv6-7b", 2, k3.rwkv6_scan, 2)
     timed("rg_train_parity", train_parity_phase, "recurrentgemma-9b", RG_TRAIN_LAYERS,
           k2.rglru_scan, n_rec)
@@ -1084,8 +1137,9 @@ def main() -> int:
             "step_ms": [r["step_ms"] for r in rg_train["steps"]],
             "tokens_per_s": [r["tokens_per_s"] for r in rg_train["steps"]],
             "peak_mem_gb": rg_train["peak_mem_gb"]},
-        "k2": {k: k2_res[k] for k in ("kernel_ms", "bound_ms", "kernel_ms_prefill",
-                                      "bound_ms_prefill")}})
+        "k2": {k: k2_res[k] for k in ("kernel_ms", "bound_ms", "copy_ceiling_ms",
+                                      "kernel_ms_prefill", "bound_ms_prefill",
+                                      "copy_ceiling_ms_prefill")}})
 
     k2_launches = rg_serving["k2_launches"] + rg_train["launches"]["rglru_scan"]
     emit({"kernels": [{
@@ -1104,11 +1158,22 @@ def main() -> int:
         "replaces": "src/repro/kernels/rglru/rglru_scan.py:22",
         "launches": k2_launches, "launches_serving": rg_serving["k2_launches"],
         "launches_train": rg_train["launches"]["rglru_scan"],
+        "launches_by_path": {p: rg_serving["launches"][f"rglru_scan/{p}"]
+                             + rg_train["launches"][f"rglru_scan/{p}"]
+                             for p in k2.rglru_scan.path_launches},
         "max_abs_err": k2_res["max_abs_err"], "ms": k2_res["kernel_ms"],
-        "plain_ms": k2_res["plain_ms"], "bound_ms": k2_res["bound_ms"],
-        "bound_by": k2_res["bound_by"], "ms_prefill": k2_res["kernel_ms_prefill"],
+        "ms_events": k2_res["kernel_events_ms"], "plain_ms": k2_res["plain_ms"],
+        "bound_ms": k2_res["bound_ms"], "bound_by": k2_res["bound_by"],
+        "copy_ceiling_ms": k2_res["copy_ceiling_ms"],
+        "host_us_per_call": k2_res["host_us_per_call"], "shapes": {
+            tag: {key: k2_res[key + suffix] for key in (
+                "shape", "kernel_ms", "kernel_events_ms", "plain_ms", "bound_ms",
+                "copy_ceiling_ms", "host_us_per_call")}
+            for tag, suffix in (("prefill", "_prefill"), ("group", "_group"))},
+        "ms_prefill": k2_res["kernel_ms_prefill"],
         "plain_ms_prefill": k2_res["plain_ms_prefill"],
-        "bound_ms_prefill": k2_res["bound_ms_prefill"], "library_ms": None}, {
+        "bound_ms_prefill": k2_res["bound_ms_prefill"],
+        "ptxas": ptxas[str(build(k2.SOURCE).relative_to(ROOT))], "library_ms": None}, {
         "name": "rwkv6_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6/rwkv6_scan.py:24",

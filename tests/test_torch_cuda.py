@@ -272,6 +272,87 @@ def test_rglru_kernel_gradient_matches_plain(card):
                                    err_msg=name)
 
 
+def _rglru_check(out, a, b, dtype, loop=False):
+    """K2's output against ``rglru_ref`` (and the time loop) at the sweep's
+    tolerances: 1e-4 in fp32, 2e-2 in bf16 (output rounding)."""
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=1e-4, atol=1e-4)
+    for ref in [rglru_ref(a, b)] + ([rglru_sequential(a, b)] if loop else []):
+        np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(), **tol)
+
+
+# S below one 64-step chunk, not a multiple of it, and one step past a
+# multiple; many chunks at one slab's width, so the 4-stage ring wraps 32 times
+@pytest.mark.parametrize("B,S,W", [(2, 1, 256), (2, 63, 256), (1, 4097, 256), (1, 8192, 32)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rglru_kernel_chunk_edges(card, B, S, W, dtype):
+    a, b = _rglru_inputs(card, B, S, W, DTYPES[dtype], seed=S)
+    before = k2.rglru_scan.path_launches["tma"]
+    out = k2.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert k2.rglru_scan.path_launches["tma"] == before + 1
+    _rglru_check(out, a, b, dtype, loop=S <= 63)
+
+
+@pytest.mark.parametrize("B,S,W", [(3, 100, 72), (1, 2112, 4096)])
+@pytest.mark.parametrize("path", ["tma", "loads"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rglru_kernel_rounds_as_the_time_loop(card, B, S, W, path, dtype):
+    """Each step rounds the product, then the sum, as the TPU kernel and the
+    decode step do: K2 equals the time loop ``rglru_sequential`` bit for bit,
+    on both paths (fp32 state; bf16 rounds only the stored h)."""
+    a, b = _rglru_inputs(card, B, S, W, DTYPES[dtype], seed=B + S)
+    if path == "loads":                              # one element off: no TMA
+        b = torch.cat([b[..., :1], b], dim=-1)[..., 1:]
+    assert k2.path_for(a, b) == path
+    assert torch.equal(k2.rglru_scan(a, b), rglru_sequential(a, b))
+
+
+def test_rglru_kernel_running_sum(card):
+    """a = 1 everywhere: h is the running sum of b, against a float64 cumsum
+    within 1e-4 of its largest value."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    b = torch.randn((2, 4096, 128), generator=gen, device=card)
+    out = k2.rglru_scan(torch.ones_like(b), b)
+    want = b.double().cumsum(1)
+    assert ((out.double() - want).abs().max() <= 1e-4 * want.abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rglru_kernel_restarts_where_a_is_zero(card, dtype):
+    """a = 0 on a random tenth of the steps: h restarts exactly at b there."""
+    a, b = _rglru_inputs(card, 2, 1000, 192, DTYPES[dtype], seed=8)
+    gen = torch.Generator(device=card).manual_seed(9)
+    zero = torch.rand(a.shape, generator=gen, device=card) < 0.1
+    a = a.masked_fill(zero, 0.0)
+    out = k2.rglru_scan(a, b)
+    assert torch.equal(out[zero], b[zero])
+    _rglru_check(out, a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rglru_kernel_takes_plain_loads_for_a_view_one_element_off(card, dtype):
+    """b = x[..., 1:]: a base TMA cannot take, so the plain loads path."""
+    a, _ = _rglru_inputs(card, 2, 300, 160, DTYPES[dtype], seed=10)
+    x = torch.randn((2, 300, 161), device=card).to(DTYPES[dtype])
+    b = x[..., 1:]
+    assert k2.path_for(a, b) == "loads"
+    before = dict(k2.rglru_scan.path_launches)
+    out = k2.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert k2.rglru_scan.path_launches == {**before, "loads": before["loads"] + 1}
+    _rglru_check(out, a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rglru_kernel_takes_tma_for_contiguous_inputs(card, dtype):
+    a, b = _rglru_inputs(card, 2, 640, 4096, DTYPES[dtype], seed=11)
+    before = dict(k2.rglru_scan.path_launches)
+    out = k2.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert k2.rglru_scan.path_launches == {**before, "tma": before["tma"] + 1}
+    _rglru_check(out, a, b, dtype)
+
+
 @pytest.mark.parametrize("case", ["dtype", "mixed", "layout", "device", "shape"])
 def test_rglru_kernel_refuses_what_it_does_not_take(card, case):
     a, b = _rglru_inputs(card, 1, 64, 32, torch.float32, seed=1)

@@ -137,6 +137,28 @@ def test_linear_recurrence_refuses_what_the_reference_asserts():
     assert linear_recurrence(a, b, chunk=32, block_w=64).shape == a.shape
 
 
+@pytest.mark.parametrize("case,dtype,want", [
+    ("contiguous", torch.float32, "tma"), ("contiguous", torch.bfloat16, "tma"),
+    ("one element off", torch.float32, "loads"), ("one element off", torch.bfloat16, "loads"),
+    ("unbound pair", torch.float32, "tma"), ("row of 132 bytes", torch.float32, "loads"),
+    ("row of 144 bytes", torch.bfloat16, "tma"), ("one step, one row", torch.float32, "tma"),
+    ("time stride of 644 bytes", torch.float32, "loads")])
+def test_k2_path_follows_strides_and_pointers(case, dtype, want):
+    """K2's wrapper takes the TMA path only where a TMA tensor map can
+    describe the tensor: a 16-byte aligned base, time and batch strides in
+    multiples of 16 bytes (a size-1 axis's stride does not count)."""
+    x = torch.zeros((2, 64, 161), dtype=dtype)     # CPU allocations are 64-byte aligned
+    t = {"contiguous": x[..., :160].contiguous(),
+         "one element off": x[..., 1:],
+         "unbound pair": torch.zeros((2, 192, 2, 160), dtype=dtype).unbind(2)[1],
+         "row of 132 bytes": torch.zeros((2, 5, 33), dtype=dtype),
+         "row of 144 bytes": torch.zeros((3, 100, 72), dtype=dtype),
+         "one step, one row": torch.zeros((1, 1, 33), dtype=dtype),
+         "time stride of 644 bytes": x[..., :160]}[case]
+    assert k2.path_for(t) == want
+    assert k2.path_for(torch.zeros((2, 64, 160), dtype=dtype), t) == want
+
+
 # ---------------------------------------------------------------------------
 # the RG-LRU blocks
 
