@@ -60,21 +60,46 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    (past the 2048 window, so the prefill's window is ring-rolled) decoded
    for 8 tokens; every step's logits against the full forward's, within
    2e-3.
-9. train — rwkv6-7b at full width (d_model 4096, 64 heads of 64, d_ff
+9. paged serving — internlm2-20b at full size (48 layers, d_model 6144,
+   48 heads of 128 with 8 kv heads, d_ff 16384, vocab 92544; 19.9 B
+   parameters) in bf16 with random seeded weights: the paged engine
+   (``ServingEngine(paged=True)``, batch 8, max_seq 4096, page 16, the
+   default pool of 2048 pages) and the contiguous engine on the same
+   parameters serve 16 requests in turns (paged, contiguous, contiguous,
+   paged): 8 share a 1024-token prefix (64 pages) with suffixes of 17-512
+   tokens, 8 are unrelated (64-2048 tokens); 32 new tokens each, one 200.
+   Prime ms of prefix misses and hits with their bounds, step ms beside its
+   bound, tokens/s, ``pool_stats()`` and ``audit_pages()``.  Fails if a
+   prefix miss's first token differs from the contiguous engine's, a
+   request does not finish, a hit prefilled more than its suffix, or a page
+   is held by a request after drain or used after flush.
+10. paged parity — internlm2-20b at full width in fp32 (TF32 off) at depth
+    4: decode through the page table and a prefix-hit prefill, layer by
+    layer from the same input, within 1e-4 of the contiguous layer's
+    largest output (the random stack amplifies rounding too much to hold
+    whole logits: they are reported beside its 1e-7 sensitivity); the same
+    kind of trace within max_seq 1024, where paged greedy tokens must equal
+    the contiguous engine's up to near-ties the full forward confirms; a
+    small pool refuses with ``QUEUE_SATURATED`` and admits the same request
+    after drain.
+11. paged whisper — whisper-large-v3 at full size with ``paged=True``
+    (batch 8, max_seq 448, page 16), 8 requests against the contiguous
+    engine: K1 must launch 32 times per admission; no prefix cache.
+12. train — rwkv6-7b at full width (d_model 4096, 64 heads of 64, d_ff
    14336, vocab 65536) cut to 4 of 32 layers, bf16 params, fp32 moments,
    ``use_pallas=True``: 3 steps of the port's launcher loop at global batch
    8 x 4096 tokens in 4 microbatches.  K3 must launch once per layer and
    microbatch (48 times; the backward recomputes through the plain chunked
    version), loss and grad norm must be finite and every layer's mixer
    parameters must receive a gradient.
-10. rg train — recurrentgemma-9b at full width cut to 3 of 38 layers (one
+13. rg train — recurrentgemma-9b at full width cut to 3 of 38 layers (one
     (recurrent, recurrent, local_attn) cycle; 2.76 B parameters with the
     untied 256000 x 4096 embedding and unembedding), bf16 params, fp32
     moments, ``use_pallas=True``: 3 steps of 8 x 4096 tokens in 4
     microbatches.  K2 must launch once per recurrent layer and microbatch
     (24 times, all on its TMA path); loss and grad norm finite; every
     recurrent layer's ``lam``, ``w_a`` and ``w_x`` must receive a gradient.
-11. train-parity — rwkv6-7b at full width in fp32, depth 2, B=1, S=1024:
+14. train-parity — rwkv6-7b at full width in fp32, depth 2, B=1, S=1024:
     the loss and its grads through K3 against the plain path, within 5e-3
     on the loss and 1e-3 relative on the grad norm.  Then the same for
     recurrentgemma-9b at depth 3 through K2.
@@ -586,62 +611,31 @@ def rglru_grad_check(linear_recurrence, rglru_ref) -> float:
 
 def drive_engine(eng, cfg, lengths, group_lengths) -> tuple:
     """Requests of prompt ``lengths`` through ``submit``/``drain``, then one
-    ``generate`` group; every request must finish with in-vocabulary tokens
-    and no step may produce a NaN logit.  The launch counts are set to 0
-    just before and read just after.  Returns the serving metrics and, per
-    prefill, (prompt length, launches by kernel)."""
+    ``generate`` group (``serve_trace``: every request must finish with
+    in-vocabulary tokens and no logit may be NaN).  The launch counts are
+    set to 0 just before and read just after.  Returns the serving metrics
+    and, per prefill, (prompt length, launches by kernel)."""
     from repro_torch.serving import Request
-
-    nan_flags, prefills = [], []          # NaN flags stay on the device until the end
-
-    def watch(step, per_prefill):
-        def run(params, *args):
-            before = read_counts()
-            cache, logits = step(params, *args)
-            nan_flags.append(torch.isnan(logits).any())
-            if per_prefill:
-                after = read_counts()
-                prefills.append((args[0]["tokens"].shape[1],
-                                 {k: after[k] - before[k] for k in after}))
-            return cache, logits
-        return run
-
-    eng._prefill, eng._decode = watch(eng._prefill, True), watch(eng._decode, False)
 
     rng = np.random.default_rng(0)
     budgets = rng.permutation(np.linspace(8, 64, len(lengths)).astype(int))
-    reqs = [Request(f"r{i}", rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-                    max_new_tokens=int(m)) for i, (n, m) in enumerate(zip(lengths, budgets))]
+    trace = [(f"r{i}", rng.integers(0, cfg.vocab_size, n).astype(np.int32), int(m), False)
+             for i, (n, m) in enumerate(zip(lengths, budgets))]
     group = [Request(f"g{i}", rng.integers(0, cfg.vocab_size, n).astype(np.int32),
                      max_new_tokens=16) for i, n in enumerate(group_lengths)]
-
     reset_counts()
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    eng.drain()
-    cb_wall_s = time.perf_counter() - t0
-    cb_metrics = dict(eng.metrics)
-    t0 = time.perf_counter()
-    eng.generate(group)
-    gen_wall_s = time.perf_counter() - t0
+    run = serve_trace(eng, trace, group)
     launches = read_counts()
-
-    for r in reqs + group:
-        assert r.done and len(r.generated) == r.max_new_tokens, r.request_id
-        assert all(0 <= t < cfg.vocab_size for t in r.generated), r.request_id
-    assert not torch.stack(nan_flags).any().item(), "NaN logits in serving"
-    assert len(prefills) == len(reqs) + 1     # one B=1 prime per request, one group prefill
-    gen_steps = eng.metrics["decode_steps"] - cb_metrics["decode_steps"]
+    prefills = [(len(prompt), a["launches"]) for (_, prompt, _, _), a in
+                zip(trace, run["admissions"])] + [(max(group_lengths), run["group_launches"])]
+    cb, gen = run["metrics"], run["generate_metrics"]
     res = dict(
-        arch=cfg.name, requests=len(reqs), prefills=len(prefills), launches=launches,
-        prime_ms=cb_metrics["prefill_ms"] / len(reqs),
-        step_ms=cb_metrics["decode_ms"] / cb_metrics["decode_steps"],
-        decode_steps=cb_metrics["decode_steps"], tokens=cb_metrics["tokens"],
-        tokens_per_s=cb_metrics["tokens"] / cb_wall_s, wall_s=cb_wall_s,
-        generate_prefill_ms=eng.metrics["prefill_ms"] - cb_metrics["prefill_ms"],
-        generate_step_ms=(eng.metrics["decode_ms"] - cb_metrics["decode_ms"]) / gen_steps,
-        generate_tokens_per_s=sum(r.max_new_tokens for r in group) / gen_wall_s,
+        arch=cfg.name, requests=len(trace), prefills=len(prefills), launches=launches,
+        prime_ms=cb["prefill_ms"] / len(trace), step_ms=run["step_ms"],
+        decode_steps=cb["decode_steps"], tokens=cb["tokens"], tokens_per_s=run["tokens_per_s"],
+        wall_s=run["wall_s"], generate_prefill_ms=gen["prefill_ms"],
+        generate_step_ms=gen["decode_ms"] / gen["decode_steps"],
+        generate_tokens_per_s=sum(r.max_new_tokens for r in group) / run["generate_wall_s"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return res, prefills
 
@@ -761,6 +755,600 @@ def rg_decode_parity_phase(k2) -> dict:
                logit_abs_max=full.abs().max().item())
     emit({"phase": "rg_decode_parity", **res})
     del params, full
+    torch.cuda.empty_cache()
+    return res
+
+
+#: paged serving (ROADMAP A.1) at full size: internlm2-20b, one 1024-token
+#: prefix (64 pages) shared by 8 requests with suffixes of 17-512 tokens, and 8
+#: unrelated prompts of 64-2048 tokens, some not a multiple of the page
+PAGED_PREFIX = 1024
+PAGED_SUFFIXES = (17, 40, 64, 100, 160, 256, 333, 512)
+PAGED_UNRELATED = (64, 100, 250, 512, 777, 1024, 1500, 2048)
+PAGED_MAX_SEQ = 4096
+PAGED_NEW, PAGED_LONG_NEW = 32, 200         # one request decodes 200: 12 page boundaries
+#: paged parity (fp32, 4 of 48 layers): the same kind of trace within max_seq 1024
+PARITY_PREFIX = 256
+PARITY_SUFFIXES = (17, 30, 48, 64, 77, 90, 100, 128)
+PARITY_UNRELATED = (40, 64, 100, 160, 250, 333, 400, 512)
+PARITY_MAX_SEQ = 1024
+#: a paged layer (decode through the page table, or a prefix hit's suffix)
+#: against the contiguous one from the same input: the largest difference
+#: relative to the largest output (the random full-width stack's residual
+#: stream grows to the thousands, and a row's rounding scales with it, not
+#: with each element).  fp32 sums of up to 16384 terms round to some 1e-5
+#: of it; a wrong page, position or past moves it by O(1)
+LAYER_REL = 1e-4
+
+
+def paged_trace(vocab, prefix_len, suffixes, unrelated, max_new, long_new, seed) -> list:
+    """(request id, prompt, max_new_tokens, shares the prefix) in submit
+    order: the shared-prefix and unrelated requests alternate, and the
+    second shared-prefix request decodes ``long_new`` tokens."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, prefix_len)
+    trace = []
+    for i, (n, m) in enumerate(zip(suffixes, unrelated)):
+        shared = np.concatenate([prefix, rng.integers(0, vocab, n)]).astype(np.int32)
+        trace.append((f"s{i}", shared, long_new if i == 1 else max_new, True))
+        trace.append((f"u{i}", rng.integers(0, vocab, m).astype(np.int32), max_new, False))
+    return trace
+
+
+def serve_trace(eng, trace, group=()) -> dict:
+    """``trace`` through ``submit`` then ``drain``, then the ``group``
+    requests (if any) through one ``generate`` call.  Every request must
+    finish with in-vocabulary tokens and no logit may be NaN.  Returns the
+    requests, each admission's prefilled tokens, ms and kernel launches (in
+    submit order: admission is FIFO), each continuous decode step's cached
+    tokens over its live rows, the engine's metrics over the continuous run
+    and its wall time, and the group's metrics, wall time and prefill
+    launches."""
+    from repro_torch.serving import Request
+
+    admissions, launched, steps, nan_flags = [], [], [], []
+    eng.on_prefill_ms = lambda n, ms: admissions.append(dict(tokens=n, ms=ms))
+    wrapped = {k: getattr(eng, k) for k in ("_prefill", "_prefill_past", "_decode")
+               if getattr(eng, k, None) is not None}
+
+    def watch_decode(params, cache, token, pos, *rest):
+        if torch.is_tensor(pos):              # per-row positions: the continuous batch
+            steps.append(torch.where(pos > 0, pos + 1, 0).sum())    # stays on the device
+        cache, logits = wrapped["_decode"](params, cache, token, pos, *rest)
+        nan_flags.append(torch.isnan(logits).any())
+        return cache, logits
+
+    def watch_prefill(step):
+        def run(*args):
+            before = read_counts()
+            out = step(*args)
+            nan_flags.append(torch.isnan(out[1]).any())
+            after = read_counts()
+            launched.append({k: after[k] - before[k] for k in after})
+            return out
+        return run
+
+    for k, step in wrapped.items():
+        setattr(eng, k, watch_decode if k == "_decode" else watch_prefill(step))
+    before = dict(eng.metrics)
+    reqs = [Request(rid, prompt, max_new_tokens=m) for rid, prompt, m, _ in trace]
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.drain()
+    wall_s = time.perf_counter() - t0
+    metrics = {k: eng.metrics[k] - before[k] for k in before}
+    out = dict(requests=reqs, admissions=admissions, wall_s=wall_s, metrics=metrics,
+               step_ms=metrics["decode_ms"] / metrics["decode_steps"],
+               tokens_per_s=metrics["tokens"] / wall_s)
+    if group:
+        before = dict(eng.metrics)
+        t0 = time.perf_counter()
+        eng.generate(list(group))
+        out["generate_wall_s"] = time.perf_counter() - t0
+        out["generate_metrics"] = {k: eng.metrics[k] - before[k] for k in before}
+        out["group_launches"] = launched.pop()
+    for k, step in wrapped.items():
+        setattr(eng, k, step)
+    for r in reqs + list(group):
+        assert r.done and len(r.generated) == r.max_new_tokens, r.request_id
+        assert all(0 <= t < eng.cfg.vocab_size for t in r.generated), r.request_id
+    assert not torch.stack(nan_flags).any().item(), "NaN logits in serving"
+    assert len(admissions) == len(launched) == len(reqs)
+    for a, n in zip(admissions, launched):
+        a["launches"] = n
+    out["step_kv_tokens"] = torch.stack(steps).tolist()
+    return out
+
+
+def serving_work(cfg) -> dict:
+    """Parameter counts the serving bounds read: the decoder's layers, the
+    unembedding (read whole for every step's logits; the embedding is only
+    gathered), and the KV bytes one cached token holds."""
+    from repro_torch.models import model_specs
+    from repro_torch.models.common import tree_leaves
+
+    layer = sum(math.prod(s.shape) for path, s in tree_leaves(model_specs(cfg))
+                if path.startswith("decoder/"))
+    attn_layers = sum(kind == "attn" for kind in cfg.layer_kinds())
+    elem = torch.tensor([], dtype=cfg.dtype).element_size()
+    return dict(layer_params=layer, head_params=cfg.d_model * cfg.vocab_size, elem=elem,
+                attn_layers=attn_layers,
+                kv_token_bytes=2 * attn_layers * cfg.num_kv_heads * cfg.resolved_head_dim * elem)
+
+
+def prefill_bound(cfg, work, new: int, past: int) -> dict:
+    """Least time of one B=1 prefill of ``new`` tokens after ``past`` cached
+    ones: 2 FLOPs per layer parameter and token, 4·hd per visible (query,
+    key) pair of each head and layer, one token's logits; against the
+    weights read once, the past K/V read and the new K/V written.  The
+    peak is bf16's for bf16 and the fp32 units' for fp32 (TF32 off)."""
+    pairs = new * past + new * (new + 1) // 2
+    flops = (2 * work["layer_params"] * new
+             + 4 * cfg.resolved_head_dim * cfg.num_heads * work["attn_layers"] * pairs
+             + 2 * work["head_params"])
+    nbytes = ((work["layer_params"] + work["head_params"]) * work["elem"]
+              + (past + new) * work["kv_token_bytes"])
+    peak = PEAK_BF16_FLOPS if work["elem"] == 2 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops > t_bytes else "bytes", flops=flops)
+
+
+def decode_bound_ms(work, kv_tokens: float) -> float:
+    """Least time of one decode step: the weights (all but the embedding)
+    and the live rows' cached K/V read once, at the memory rate (the
+    step's 2·params·rows FLOPs take far less)."""
+    return ((work["layer_params"] + work["head_params"]) * work["elem"]
+            + kv_tokens * work["kv_token_bytes"]) / PEAK_BYTES * 1e3
+
+
+def token_agreement(a, b) -> float:
+    """Share of greedy tokens equal position by position."""
+    same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra.generated, rb.generated))
+    return same / sum(len(r.generated) for r in a)
+
+
+def paged_run_summary(cfg, work, run, trace) -> dict:
+    """prime ms split by prefix misses and hits (with each admission's
+    prefilled tokens and bound), step ms beside its bound, tokens/s."""
+    out = {"miss": [], "hit": []}
+    for (rid, prompt, _, _), a in zip(trace, run["admissions"]):
+        past = len(prompt) - a["tokens"]
+        out["hit" if past else "miss"].append(dict(
+            id=rid, prompt=len(prompt), prefilled=a["tokens"], ms=a["ms"],
+            **prefill_bound(cfg, work, a["tokens"], past)))
+    kv = run["step_kv_tokens"]
+    res = dict(step_ms=run["step_ms"], decode_steps=run["metrics"]["decode_steps"],
+               step_bound_ms=decode_bound_ms(work, sum(kv) / len(kv)),
+               mean_cached_tokens_per_step=sum(kv) / len(kv),
+               tokens=run["metrics"]["tokens"], tokens_per_s=run["tokens_per_s"],
+               wall_s=run["wall_s"], prefill_ms=run["metrics"]["prefill_ms"])
+    for kind in ("miss", "hit"):
+        rows = out[kind]
+        res[f"prime_ms_{kind}"] = [r["ms"] for r in rows]
+        res[f"prime_{kind}"] = rows
+        if rows:
+            res[f"prime_ms_{kind}_mean"] = sum(r["ms"] for r in rows) / len(rows)
+    return res
+
+
+def check_paged_run(eng, run, trace, prefix_len, name) -> dict:
+    """The phase's checks on one paged run: every hit prefilled no more than
+    its suffix; after drain no page is held by a request (what stays in use
+    is the prefix cache's own reference on each page it registered, as in
+    the reference) and nothing is reserved; after flush the pool is empty."""
+    for (rid, prompt, _, shares), a in zip(trace, run["admissions"]):
+        if a["tokens"] < len(prompt) and a["tokens"] > len(prompt) - prefix_len:
+            raise AssertionError(f"{name}: {rid} hit the prefix cache but prefilled "
+                                 f"{a['tokens']} tokens, more than its suffix")
+    hits = sum(a["tokens"] < len(p) for (_, p, _, _), a in zip(trace, run["admissions"]))
+    shared = sum(shares for *_, shares in trace)
+    cached = len(eng._prefix) if eng._prefix is not None else 0
+    drained = eng.audit_pages()
+    stats = eng.pool_stats()
+    if drained["reserved"] != 0 or drained["used"] != cached:
+        raise AssertionError(f"{name}: after drain {drained} with {cached} prefix-cache "
+                             "pages: a request still holds pages")
+    eng.flush()
+    flushed = eng.audit_pages()
+    if flushed["used"] != 0 or flushed["reserved"] != 0:
+        raise AssertionError(f"{name}: after flush {flushed}")
+    return dict(prefix_hits=hits, shared_prefix_requests=shared, pool_stats=stats,
+                audit_after_drain=drained, pages_held_by_requests_after_drain=drained["used"]
+                - cached, prefix_cache_pages_after_drain=cached, audit_after_flush=flushed)
+
+
+def paged_serving_phase(cfg) -> dict:
+    """internlm2-20b at full size (48 layers, 19.9 B parameters) in bf16
+    with random seeded weights: the paged engine (batch 8, max_seq 4096,
+    page 16, the default pool of 2048 pages) and the contiguous engine on
+    the same parameter tensors serve the same 16-request trace, in turns
+    (paged, contiguous, contiguous, paged; each run ends in ``flush``).  The
+    first token of every prefix miss must equal the contiguous engine's (the
+    same B=1 prefill); the greedy tokens of the rest are reported, not held:
+    bf16 near-ties flip (``paged_parity`` holds the two layouts in fp32)."""
+    from repro_torch.models import count_params, model_specs
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import ServingEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(model_specs(cfg), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    work = serving_work(cfg)
+    trace = paged_trace(cfg.vocab_size, PAGED_PREFIX, PAGED_SUFFIXES, PAGED_UNRELATED,
+                        PAGED_NEW, PAGED_LONG_NEW, seed=5)
+    engines = {"paged": ServingEngine(cfg, params, batch_size=8, max_seq=PAGED_MAX_SEQ,
+                                      paged=True, page_size=16),
+               "contiguous": ServingEngine(cfg, params, batch_size=8, max_seq=PAGED_MAX_SEQ)}
+    runs = {"paged": [], "contiguous": []}
+    reset_counts()
+    for name in ("paged", "contiguous", "contiguous", "paged"):
+        eng = engines[name]
+        run = serve_trace(eng, trace)
+        summary = paged_run_summary(cfg, work, run, trace)
+        if name == "paged":
+            summary.update(check_paged_run(eng, run, trace, PAGED_PREFIX, "paged_serving"))
+        else:
+            eng.flush()                       # drops the 6.4 GB contiguous cache
+        runs[name].append((run, summary))
+    launches = read_counts()
+    paged0, contig0 = runs["paged"][0][0], runs["contiguous"][0][0]
+    for (rid, prompt, _, _), a, rp, rc in zip(trace, paged0["admissions"],
+                                              paged0["requests"], contig0["requests"]):
+        if a["tokens"] == len(prompt) and rp.generated[0] != rc.generated[0]:
+            raise AssertionError(f"paged_serving: prefix miss {rid} ({len(prompt)} tokens) "
+                                 f"gave first token {rp.generated[0]}, the contiguous engine "
+                                 f"{rc.generated[0]}")
+    for _, summary in runs["paged"]:
+        if summary["prefix_hits"] != summary["shared_prefix_requests"] - 1:
+            raise AssertionError(f"paged_serving: {summary['prefix_hits']} prefix hits, "
+                                 f"expected {summary['shared_prefix_requests'] - 1}")
+    profiles = {}
+    for name, eng in engines.items():
+        t0 = time.perf_counter()
+        profiles[name] = profile_window(eng, cfg, prompt_len=64)
+        profiles[name]["seconds"] = time.perf_counter() - t0
+        eng.flush()
+    paged_runs = [run for run, _ in runs["paged"]]
+    contig_runs = [run for run, _ in runs["contiguous"]]
+    res = dict(
+        arch=cfg.name, layers=cfg.num_layers, params=count_params(cfg), init_s=init_s,
+        batch=8, max_seq=PAGED_MAX_SEQ, page_size=16, pool_pages=engines["paged"].pool_pages,
+        kv_token_bytes=work["kv_token_bytes"], requests=len(trace), launches=launches,
+        runs={name: [summary for _, summary in rs] for name, rs in runs.items()},
+        token_agreement_bf16=token_agreement(paged0["requests"], contig0["requests"]),
+        paged_repeat_agreement=token_agreement(*(r["requests"] for r in paged_runs)),
+        contiguous_repeat_agreement=token_agreement(*(r["requests"] for r in contig_runs)),
+        profile=profiles, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit({"phase": "paged_serving", **res})
+    del engines, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def paged_parity_phase() -> dict:
+    """internlm2-20b at full width cut to 4 of 48 layers, fp32 (TF32 off).
+
+    The random full-width stack is chaotic: a 1e-7 relative change of the
+    embedding moves its fp32 logits by some 0.01-0.2 (``sensitivity_1e7``
+    in the report), and the two layouts compute in different shapes (attention
+    over the table's width instead of max_seq; a suffix-only prefill), so
+    their rounding alone moves the logits that much.  Logits are therefore
+    not held whole, as ``parity_phase`` holds the encoder:
+
+    Functions (``paged_step_parity``, ``prefix_hit_parity``): decode steps
+    through the page table and a prefix-hit prefill are held layer by
+    layer, from the same input, to the contiguous layer within
+    ``LAYER_REL``; the gathered prefix K/V must equal the prefill's bit for
+    bit.  The whole steps' logits are reported beside the step's own 1e-7
+    sensitivity.
+
+    Engines: the paged engine (prefix hits, page growth) must give the
+    contiguous engine's greedy tokens, except that a request may part from
+    the contiguous one at a near-tie: where the full forward
+    (``full_forward_logits``, independent of both layouts) puts both
+    tokens within ``near_tie`` of its top logit.  ``near_tie`` is 4 times
+    the largest logit change a 1e-7 embedding nudge makes in the decode
+    steps of ``paged_step_parity``, which also reports how far the two
+    layouts' whole steps differ.  A wrong page or position picks a token
+    from anywhere in the 92544-token vocabulary, some 4 logits below the
+    top.  Any other parting fails the phase, and so does a prefix miss
+    whose first token differs (the same B=1 prefill).  The partings are
+    reported with their gaps, and the share of tokens that agree.
+
+    Pool: a small pool must refuse with ``QUEUE_SATURATED`` and a positive
+    ``retry_after_s`` and admit the same request after ``drain``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.errors import AdmissionRefused, ErrorCode
+    from repro_torch.models import model_specs
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = dataclasses.replace(get_config("internlm2-20b"), num_layers=4,
+                              param_dtype="float32", compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(model_specs(cfg), seed=1, device="cuda")
+    trace = paged_trace(cfg.vocab_size, PARITY_PREFIX, PARITY_SUFFIXES, PARITY_UNRELATED,
+                        16, 100, seed=6)
+    steps, prefix_hit = paged_step_parity(cfg, params)
+    paged = ServingEngine(cfg, params, batch_size=8, max_seq=PARITY_MAX_SEQ, paged=True)
+    contiguous = ServingEngine(cfg, params, batch_size=8, max_seq=PARITY_MAX_SEQ)
+    run_p, run_c = serve_trace(paged, trace), serve_trace(contiguous, trace)
+    near_tie = 4 * max(max(rows) for rows in steps["step_sensitivity_1e7"])
+    partings = []
+    for (rid, prompt, _, _), a, rp, rc in zip(trace, run_p["admissions"], run_p["requests"],
+                                              run_c["requests"]):
+        if rp.generated == rc.generated:
+            continue
+        d = dict(id=rid, prefix_hit=a["tokens"] < len(prompt),
+                 **divergence(cfg, params, prompt, rp, rc))
+        top = d["full_forward_top3"][0][1]
+        d["gaps_to_top"] = [top - x for x in d["full_forward_logits"]]
+        partings.append(d)
+        if max(d["gaps_to_top"]) > near_tie or (d["at"] == 0 and not d["prefix_hit"]):
+            raise AssertionError(f"paged_parity: {rid}'s greedy tokens part from the "
+                                 f"contiguous engine's at no near-tie: {d}")
+    checks = check_paged_run(paged, run_p, trace, PARITY_PREFIX, "paged_parity")
+    if checks["prefix_hits"] != checks["shared_prefix_requests"] - 1:
+        raise AssertionError(f"paged_parity: {checks['prefix_hits']} prefix hits")
+
+    small = ServingEngine(cfg, params, batch_size=2, max_seq=PARITY_MAX_SEQ, paged=True,
+                          pool_pages=32, prefix_sharing=False)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, 200).astype(np.int32) for _ in range(3)]
+    held = [small.submit(Request(f"h{i}", p, max_new_tokens=56)) for i, p in enumerate(prompts[:2])]
+    try:
+        small.submit(Request("over", prompts[2], max_new_tokens=56))
+        raise AssertionError("paged_parity: a full pool admitted a request")
+    except AdmissionRefused as e:
+        refusal = dict(code=e.code.value, message=e.message, detail=e.detail)
+        if e.code != ErrorCode.QUEUE_SATURATED or not e.detail["retry_after_s"] > 0:
+            raise AssertionError(f"paged_parity: refusal {refusal}")
+    small.drain()
+    again = small.submit(Request("over", prompts[2], max_new_tokens=56))
+    small.drain()
+    if not (all(r.done for r in held) and again.done and small.audit_pages()["used"] == 0):
+        raise AssertionError(f"paged_parity: after drain {small.audit_pages()}")
+    res = dict(arch=cfg.name, layers=cfg.num_layers, dtype="float32", tf32=False,
+               requests=len(trace), tokens=run_p["metrics"]["tokens"],
+               requests_identical=len(trace) - len(partings),
+               token_agreement=token_agreement(run_p["requests"], run_c["requests"]),
+               partings=partings, near_tie=near_tie, **checks, prefix_hit_prefill=prefix_hit,
+               step_ms_paged=run_p["step_ms"], step_ms_contiguous=run_c["step_ms"],
+               decode_steps_parity=steps,
+               refusal=refusal, readmitted=True, audit_small=small.audit_pages(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit({"phase": "paged_parity", **res})
+    del paged, contiguous, small, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def divergence(cfg, params, prompt, a, b) -> dict:
+    """Where two requests' greedy tokens part, and what the full forward
+    (``full_forward_logits`` over the prompt and the common tokens) gives
+    the two candidates there: a gap near fp32 rounding is a near-tie, a
+    large one a fault."""
+    from repro_torch.models import full_forward_logits
+
+    at = next(i for i, (x, y) in enumerate(zip(a.generated, b.generated)) if x != y)
+    seq = np.concatenate([prompt, np.asarray(a.generated[:at], np.int32)])
+    with torch.inference_mode():
+        logits = full_forward_logits(cfg, params, {"tokens": torch.as_tensor(
+            seq[None], dtype=torch.int64, device="cuda")})[0, -1]
+    top = torch.topk(logits, 3)
+    return dict(at=at, tokens=(a.generated[at], b.generated[at]),
+                full_forward_logits=(logits[a.generated[at]].item(),
+                                     logits[b.generated[at]].item()),
+                full_forward_top3=list(zip(top.indices.tolist(), top.values.tolist())))
+
+
+def paged_step_parity(cfg, params, lengths=(300, 77), steps=24) -> tuple:
+    """Two rows prefilled once; the prefill written both into a contiguous
+    cache (``extend_cache`` + ``write_slots``) and into pool pages
+    (``write_prefill_paged``); then ``steps`` decode steps of the same
+    random tokens, each row on its own timeline and growing into new pages.
+
+    Every step starts from the same cache contents (the K/V the contiguous
+    step wrote are copied into the pool slots the paged step wrote).  Held:
+    layer by layer from the same input, ``apply_layer_decode`` on the pool
+    through the page table against the contiguous cache, within
+    ``LAYER_REL`` of the largest output.  Reported: the whole steps'
+    logits (``build_decode_step_paged`` against ``build_decode_step``)
+    beside the contiguous step's own change when the embedding moves by
+    1e-7 relative — the random full-width stack turns the two layouts'
+    rounding into logit differences of that size.  Row 0 is also
+    prefilled as a prefix hit (``prefix_hit_parity``).  Returns the steps'
+    report and the prefix hit's."""
+    from repro_torch.models import (build_decode_step, build_decode_step_paged,
+                                    build_prefill_step, decode_cache, decode_cache_paged,
+                                    paged_cache_flags)
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import _decoder, _embed_tokens
+    from repro_torch.models.transformer import _at, apply_layer_decode
+    from repro_torch.serving.cache_utils import (extend_cache, gather_pages,
+                                                 write_prefill_paged, write_slots)
+
+    ps, B = 16, len(lengths)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    need = [-(-(S + steps) // ps) for S in lengths]
+    width = 1 << (max(need) - 1).bit_length()
+    pages, nxt = [], 1
+    for n in need:
+        pages.append(list(range(nxt, nxt + n)))
+        nxt += n
+    flags = paged_cache_flags(cfg)
+    contig = decode_cache(cfg, B, PARITY_MAX_SEQ, "cuda")
+    pool = decode_cache_paged(cfg, B, PARITY_MAX_SEQ, nxt - 1, ps, "cuda")
+    tables = torch.zeros((B, width), dtype=torch.int64, device="cuda")
+    prefill = build_prefill_step(cfg)
+    dec = _decoder(cfg)
+    report = dict(layer_rel_err=[], logit_err=[], step_sensitivity_1e7=[])
+
+    def clone(tree):
+        return tree_map(lambda t: t.clone(), tree)
+
+    with torch.inference_mode():
+        for b, S in enumerate(lengths):
+            tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device="cuda")
+            pcache, logits = prefill(params, {"tokens": tokens})
+            write_slots(contig, extend_cache(decode_cache(cfg, 1, PARITY_MAX_SEQ, "cuda"),
+                                             pcache, S), [b])
+            write_prefill_paged(flags, pool, pcache, pages[b][:-(-S // ps)], b, S, ps)
+            tables[b, :len(pages[b])] = torch.tensor(pages[b], device="cuda")
+            if b == 0:
+                past = gather_pages(flags, pool, pages[b][:PARITY_PREFIX // ps])
+                prefix_hit = prefix_hit_parity(cfg, params, tokens, pcache, past, logits)
+        dense, paged = build_decode_step(cfg), build_decode_step_paged(cfg, ps)
+        pos = torch.tensor(lengths, device="cuda")
+        rows = torch.arange(B, device="cuda")
+        for _ in range(steps):
+            token = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device="cuda")
+            c_layers, p_layers, c_nudged = clone(contig), clone(pool), clone(contig)
+            x = _embed_tokens(cfg, params, token)
+            rel = []
+            for group, key, r, d, lp in dec._layers(params["decoder"]):
+                want = apply_layer_decode(cfg, d, lp, x, _at(c_layers[group][key], r), pos)
+                got = apply_layer_decode(cfg, d, lp, x, _at(p_layers[group][key], r), pos,
+                                         tables, ps)
+                rel.append(((got - want).abs().max() / want.abs().max()).item())
+                if not torch.isfinite(got).all() or not rel[-1] <= LAYER_REL:
+                    raise AssertionError(f"paged decode at {pos.tolist()}, layer {len(rel) - 1}: "
+                                         f"largest difference {rel[-1]:.3e} of the largest "
+                                         "output")
+                x = want
+            embed = params["embed"]
+            params["embed"] = embed * (1 + 1e-7 * torch.randn(embed.shape, generator=gen,
+                                                              device="cuda"))
+            _, moved = dense(params, c_nudged, token, pos)
+            params["embed"] = embed
+            contig, want = dense(params, contig, token, pos)
+            pool, got = paged(params, pool, token, pos, tables)
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"paged decode at {pos.tolist()}: non-finite logits")
+            report["layer_rel_err"].append(max(rel))
+            report["logit_err"].append((got - want).abs().amax(-1).tolist())
+            report["step_sensitivity_1e7"].append((moved - want).abs().amax(-1).tolist())
+            pid, off = tables[rows, pos // ps], pos % ps
+            for path, flag in tree_leaves(flags):
+                dst, src = tree_get(pool, path), tree_get(contig, path)
+                if flag and path.startswith("blocks/"):   # stacked: a leading layer axis
+                    dst[:, pid, off] = src[:, rows, pos]
+                elif flag:
+                    dst[pid, off] = src[rows, pos]
+            pos = pos + 1
+    report["max_layer_rel_err"] = max(report["layer_rel_err"])
+    return report, prefix_hit
+
+
+def prefix_hit_parity(cfg, params, tokens, pcache, past, logits) -> dict:
+    """A prefix hit against the full prefill of ``tokens`` (its cache
+    ``pcache`` and last-token ``logits``): ``past`` (gathered from the pool
+    pages the full prefill was written into) must equal the prefill's first
+    ``PARITY_PREFIX`` positions bit for bit; then, layer by layer from the
+    full prefill's input, the suffix rows through
+    ``apply_layer_prefill(past=...)`` are held to the full prefill's output
+    rows and K/V within ``LAYER_REL`` of their largest value.
+    Reported beside it: the
+    free-running difference of ``build_prefill_past_step``'s logits and the
+    full prefill's own change when the embedding moves by 1e-7 relative."""
+    from repro_torch.models import build_prefill_past_step, build_prefill_step
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import _decoder, _embed_tokens
+    from repro_torch.models.transformer import _at, apply_layer_prefill
+
+    P = PARITY_PREFIX
+    for path, leaf in tree_leaves(past):
+        full = tree_get(pcache, path)
+        if not torch.equal(leaf, full.narrow(-3, 0, P)):
+            raise AssertionError(f"prefix hit: gathered {path} differs from the prefill's")
+    dec = _decoder(cfg)
+    positions = torch.arange(tokens.shape[1], device="cuda")
+    x = _embed_tokens(cfg, params, tokens)
+    layer_err = []
+    for group, key, r, d, lp in dec._layers(params["decoder"]):
+        lpast = past[group][key] if r is None else _at(past[group][key], r)
+        want, wcache = apply_layer_prefill(cfg, d, lp, x, positions, None)
+        got, gcache = apply_layer_prefill(cfg, d, lp, x[:, P:], positions[P:], None,
+                                          past=lpast, past_len=P)
+        rel = {}
+        for name, g, w in (("out", got, want[:, P:]), ("k", gcache["k"], wcache["k"][:, P:]),
+                           ("v", gcache["v"], wcache["v"][:, P:])):
+            rel[name] = ((g - w).abs().max() / w.abs().max()).item()
+            if not torch.isfinite(g).all() or not rel[name] <= LAYER_REL:
+                raise AssertionError(f"prefix hit, layer {len(layer_err)} {name}: largest "
+                                     f"difference {rel[name]:.3e} of the largest value")
+        layer_err.append(rel | {"out_abs_max": want.abs().max().item()})
+        x = want
+    _, hit = build_prefill_past_step(cfg)(params, {"tokens": tokens[:, P:]}, past)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    embed = params["embed"]
+    params["embed"] = embed * (1 + 1e-7 * torch.randn(embed.shape, generator=gen,
+                                                      device="cuda"))
+    _, moved = build_prefill_step(cfg)(params, {"tokens": tokens})
+    params["embed"] = embed
+    return dict(prefix=P, suffix=tokens.shape[1] - P, layer_rel_err=layer_err,
+                free_running_logit_err=(hit - logits).abs().max().item(),
+                sensitivity_1e7=(moved - logits).abs().max().item(),
+                logit_abs_max=logits.abs().max().item())
+
+
+def tree_get(tree, path: str):
+    """The leaf of a nested dict at a ``tree_leaves`` path (``a/b/c``)."""
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def paged_whisper_phase(cfg) -> dict:
+    """whisper-large-v3 at full size with ``paged=True`` (batch 8, max_seq
+    448, page 16) and the contiguous engine on the same parameters serve 8
+    requests in turns (paged, contiguous, contiguous, paged).  Every
+    admission of either engine must launch K1 32 times (once per encoder
+    layer); encdec has no prefix cache; after drain no page is used."""
+    from repro_torch.serving import ServingEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    paged = ServingEngine(cfg, batch_size=8, max_seq=448, paged=True, page_size=16, seed=0)
+    engines = {"paged": paged,
+               "contiguous": ServingEngine(cfg, paged.params, batch_size=8, max_seq=448)}
+    rng = np.random.default_rng(9)
+    trace = [(f"w{i}", rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32), int(m), False)
+             for i, (n, m) in enumerate(zip(np.linspace(4, 64, 8), np.linspace(8, 40, 8)))]
+    runs = {"paged": [], "contiguous": []}
+    k1 = {"paged": 0, "contiguous": 0}
+    for name in ("paged", "contiguous", "contiguous", "paged"):
+        eng = engines[name]
+        reset_counts()
+        run = serve_trace(eng, trace)
+        k1[name] += read_counts()["flash_attention"]
+        per = [a["launches"]["flash_attention"] for a in run["admissions"]]
+        if per != [cfg.encoder_layers] * len(trace):
+            raise AssertionError(f"paged_whisper ({name}): K1 launches per admission {per}")
+        if name == "paged":
+            stats, drained = eng.pool_stats(), eng.audit_pages()
+            if "prefix_hit_rate" in stats or eng._prefix is not None:
+                raise AssertionError(f"paged_whisper: a prefix cache on encdec: {stats}")
+            if drained["used"] != 0 or drained["reserved"] != 0:
+                raise AssertionError(f"paged_whisper: after drain {drained}")
+        eng.flush()
+        runs[name].append(run)
+    res = dict(arch=cfg.name, requests=len(trace), batch=8, max_seq=448, page_size=16,
+               pool_pages=paged.pool_pages, k1_launches_paged=k1["paged"],
+               k1_launches_contiguous=k1["contiguous"], k1_per_admission=cfg.encoder_layers,
+               pool_stats=stats, audit_after_drain=drained, audit_after_flush=paged.audit_pages(),
+               token_agreement=token_agreement(runs["paged"][0]["requests"],
+                                               runs["contiguous"][0]["requests"]),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    for name, rs in runs.items():
+        res[f"prime_ms_{name}"] = [r["metrics"]["prefill_ms"] / len(trace) for r in rs]
+        res[f"step_ms_{name}"] = [r["step_ms"] for r in rs]
+        res[f"tokens_per_s_{name}"] = [r["tokens_per_s"] for r in rs]
+    emit({"phase": "paged_whisper", **res})
+    del paged, engines
     torch.cuda.empty_cache()
     return res
 
@@ -1114,6 +1702,9 @@ def main() -> int:
     rg_cfg = dataclasses.replace(get_config("recurrentgemma-9b"), use_pallas=True)
     rg_serving = timed("rg_serving", rg_serving_phase, rg_cfg)
     timed("rg_decode_parity", rg_decode_parity_phase, k2)
+    paged_serving = timed("paged_serving", paged_serving_phase, get_config("internlm2-20b"))
+    timed("paged_parity", paged_parity_phase)
+    paged_whisper = timed("paged_whisper", paged_whisper_phase, cfg)
     rwkv_cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=TRAIN_LAYERS,
                                    use_pallas=True)
     train = timed("train", train_phase, rwkv_cfg, k3.rwkv6_scan,
@@ -1130,7 +1721,15 @@ def main() -> int:
     timed("rg_train_parity", train_parity_phase, "recurrentgemma-9b", RG_TRAIN_LAYERS,
           k2.rglru_scan, n_rec)
     emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - t0})
-    emit({"phase": "summary", "recurrentgemma-9b serving": {
+    paged_runs = paged_serving["runs"]
+    emit({"phase": "summary", "internlm2-20b serving": {
+        name: {k: [r[k] for r in runs] for k in (
+            "prime_ms_miss_mean", "prime_ms_hit_mean", "step_ms", "step_bound_ms",
+            "tokens_per_s") if k in runs[0]} for name, runs in paged_runs.items()} | {
+        "prefix_hit_rate": [r["pool_stats"]["prefix_hit_rate"] for r in paged_runs["paged"]],
+        "token_agreement_bf16": paged_serving["token_agreement_bf16"],
+        "peak_mem_gb": paged_serving["peak_mem_gb"]},
+        "recurrentgemma-9b serving": {
         k: rg_serving[k] for k in ("prime_ms", "step_ms", "tokens_per_s")} | {
         "device_idle_share": rg_serving["profile"].get("device_idle_share", "not measured")},
         "recurrentgemma-9b train": {
@@ -1142,11 +1741,15 @@ def main() -> int:
                                       "copy_ceiling_ms_prefill")}})
 
     k2_launches = rg_serving["k2_launches"] + rg_train["launches"]["rglru_scan"]
+    k1_launches = {"serving": serving["k1_launches"],
+                   "paged_whisper": paged_whisper["k1_launches_paged"],
+                   "paged_whisper_contiguous": paged_whisper["k1_launches_contiguous"]}
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:31",
-        "launches": serving["k1_launches"], "max_abs_err": k1["max_abs_err"],
+        "launches": sum(k1_launches.values()), "launches_by_phase": k1_launches,
+        "max_abs_err": k1["max_abs_err"],
         "ms": k1["kernel_ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"], "shapes": {

@@ -8,7 +8,8 @@ under the reference's gate when ``cfg.use_pallas`` is set.
 
 The reference's sequence-parallel hooks (``sp_*``, ``constrain*``) are
 identities without a sharding context and are left out.  Cache updates are
-in place: the caller's cache tensors are written, and returned.
+in place: the caller's cache tensors (or page pool) are written, and
+returned.
 """
 from __future__ import annotations
 
@@ -145,15 +146,28 @@ def self_attention(cfg, p: dict, x, positions, *, causal=True,
     return out_proj(p, o)
 
 
-def prefill_attention(cfg, p: dict, x, positions, *, window: Optional[int] = None):
+def prefill_attention(cfg, p: dict, x, positions, *, window: Optional[int] = None,
+                      past: Optional[dict] = None, past_len: int = 0):
     """Causal self-attention that also returns the KV cache (its latest
     ``window`` positions for a local layer).  As in the reference, no
     ``cfg`` reaches ``chunked_attention`` here, so prefill never takes the
-    kernel."""
+    kernel.
+
+    With ``past`` (k/v of an already-cached prefix, (B, past_len, K, hd)),
+    only the suffix is computed: queries at ``positions`` (absolute, i.e.
+    ``past_len + arange(S)``) attend over concat(past, suffix), and the
+    returned cache covers the suffix only — the prefix's pages already hold
+    its K/V."""
     q, k, v = project_qkv(p, x)
     if cfg.family != "encdec":
         q = cm.rope(q, positions, cfg.rope_theta)
         k = cm.rope(k, positions, cfg.rope_theta)
+    if past is not None:
+        k_all = torch.cat([past["k"].to(k.dtype), k], dim=1)
+        v_all = torch.cat([past["v"].to(v.dtype), v], dim=1)
+        o = chunked_attention(q, k_all, v_all, causal=True, window=window,
+                              chunk=cfg.attn_chunk, q_offset=past_len)
+        return out_proj(p, o), {"k": k, "v": v}
     o = chunked_attention(q, k, v, causal=True, window=window, chunk=cfg.attn_chunk)
     y = out_proj(p, o)
     if window is not None and k.shape[1] > window:
@@ -204,6 +218,47 @@ def decode_attention(cfg, p: dict, x, cache: dict, pos, *,
                       window=window, kv_valid=kv_valid)
     o = o.reshape(B, 1, H, hd)
     return out_proj(p, o), {"k": k_cache, "v": v_cache}
+
+
+def paged_decode_attention(cfg, p: dict, x, cache: dict, pos, tables, *,
+                           page_size: int):
+    """One-token decode against a block-granular paged KV pool.
+
+    cache k/v: (num_pages+1, page_size, K, hd) — row 0 is the null page that
+    dead batch rows write into and no one reads.  tables: (B, width) page
+    ids (0 where unallocated); pos: (B,) per-row absolute positions.  The
+    engine guarantees that every position <= pos[b] is backed by a real
+    page in row b's table and that the write page (block ``pos //
+    page_size``) is private to row b: shared prefix pages are never
+    written.  The new k/v are written into the pool in place (a view of a
+    stacked pool writes the stacked storage); the gather through the table
+    copies.
+    """
+    q, k_new, v_new = project_qkv(p, x)           # (B, 1, ., .)
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+    posv = pos[:, None]
+    if cfg.family != "encdec":
+        q = cm.rope(q, posv, cfg.rope_theta)
+        k_new = cm.rope(k_new, posv, cfg.rope_theta)
+    k_pool, v_pool = cache["k"], cache["v"]
+    B = q.shape[0]
+    b = torch.arange(B, device=x.device)
+    pid = tables[b, pos // page_size]             # (B,) write page per row
+    off = pos % page_size
+    k_pool[pid, off] = k_new[:, 0].to(k_pool.dtype)
+    v_pool[pid, off] = v_new[:, 0].to(v_pool.dtype)
+    K, hd = k_pool.shape[-2], k_pool.shape[-1]
+    T = tables.shape[1] * page_size
+    k = k_pool[tables].reshape(B, T, K, hd)       # gather through the table
+    v = v_pool[tables].reshape(B, T, K, hd)
+    idx = torch.arange(T, dtype=torch.int64, device=x.device)
+    kv_valid = idx[None, :] <= posv
+    H = q.shape[2]
+    qg = q.reshape(B, 1, K, H // K, hd)
+    o = _block_attend(qg, k, v, posv, idx, causal=True, window=None,
+                      kv_valid=kv_valid)
+    o = o.reshape(B, 1, H, hd)
+    return out_proj(p, o), {"k": k_pool, "v": v_pool}
 
 
 def cross_attention(cfg, p: dict, x, kv_cache: dict):

@@ -84,7 +84,7 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
     if spec.init == "small":
         std = 0.02 * spec.scale
     x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * std).to(spec.dtype)
+    return x.mul_(std).to(spec.dtype)        # in place: one fp32 copy at a time
 
 
 def init_params(specs, seed: int = 0, device=None):

@@ -4,6 +4,9 @@ PyTorch port of ``repro/models/model.py``.
 - :func:`model_specs`        — ParamSpec tree for an arch (the reference's layout)
 - :func:`loss_fn`            — full train loss (chunked cross-entropy; MoE aux 0)
 - :func:`build_prefill_step` / :func:`build_decode_step` / :func:`decode_cache`
+- paged serving: :func:`decode_cache_paged`, :func:`paged_cache_flags`,
+  :func:`paged_support`, :func:`build_prefill_past_step` (suffix-only
+  prefill against a cached prefix), :func:`build_decode_step_paged`
 - :func:`full_forward_logits` — train-path logits, the oracle decode is held to
 - :func:`count_params`       — analytic N
 """
@@ -16,7 +19,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.models import common as cm
-from repro_torch.models.transformer import LayerDef, Stack
+from repro_torch.models.transformer import (_PAGED_MIXER_LEAVES, LayerDef, Stack,
+                                            build_layer_defs)
 
 
 def _decoder(cfg) -> Stack:
@@ -189,3 +193,80 @@ def build_decode_step(cfg):
 
 def decode_cache(cfg, batch: int, seq_len: int, device=None):
     return _decoder(cfg).cache(batch, seq_len, cm.resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# paged serving (block-granular KV pool + prefix reuse)
+
+
+def decode_cache_paged(cfg, batch: int, seq_len: int, pool_pages: int, page_size: int,
+                       device=None):
+    """Decode cache with attn leaves in ``(pool_pages+1, page_size, K, hd)``
+    pool layout (row 0 = null page); resident leaves stay ``(batch, ...)``."""
+    return _decoder(cfg).paged_cache(batch, seq_len, pool_pages, page_size,
+                                     cm.resolve_device(device))
+
+
+def paged_cache_flags(cfg):
+    """Cache-structured bool tree marking pool-layout leaves."""
+    return _decoder(cfg).paged_flags()
+
+
+def paged_support(cfg):
+    """-> (any_paged, prefix_ok): whether the arch has pageable cache leaves
+    at all, and whether prefix-cache reuse is sound for it (every mixer
+    pageable, no cross-attention, no encoder/image context)."""
+    defs = build_layer_defs(cfg)
+    any_paged = any(d.mixer in _PAGED_MIXER_LEAVES for d in defs)
+    prefix_ok = (cfg.family not in ("encdec", "vision")
+                 and all(d.mixer in _PAGED_MIXER_LEAVES and not d.cross for d in defs))
+    return any_paged, prefix_ok
+
+
+def _past_seq_len(past) -> int:
+    """Prefix length from a past tree's leaf shapes."""
+    for path, leaf in cm.tree_leaves(past):
+        name = path.rsplit("/", 1)[-1]
+        if name in ("k", "v"):
+            return int(leaf.shape[-3])
+        if name in ("c_kv", "k_rope"):
+            return int(leaf.shape[-2])
+    raise ValueError("past tree has no recognizable KV leaf")
+
+
+def build_prefill_past_step(cfg):
+    """Suffix-only prefill against an already-cached prefix.
+
+    ``past`` is a cache-structured tree of the prefix's K/V at batch 1; its
+    leaf shapes carry the prefix length.  Only archs for which
+    :func:`paged_support` reports ``prefix_ok`` may use this.
+    """
+    dec = _decoder(cfg)
+
+    def prefill_past_step(params, batch, past):
+        tokens = batch["tokens"]
+        past_len = _past_seq_len(past)
+        positions = past_len + torch.arange(tokens.shape[1], device=tokens.device)
+        x = _embed_tokens(cfg, params, tokens)
+        feats, cache = dec.prefill(params["decoder"], x, positions, None,
+                                   past=past, past_len=past_len)
+        return cache, _logits(cfg, params, feats[:, -1:])[:, 0]
+
+    return prefill_past_step
+
+
+def build_decode_step_paged(cfg, page_size: int):
+    dec = _decoder(cfg)
+
+    def decode_step(params, cache, token, pos, tables):
+        """token: (B,1) int; pos: (B,) absolute positions; tables: (B, width)
+        page ids (0 = unallocated / null).  The pool is written in place."""
+        x = _embed_tokens(cfg, params, token)
+        if cfg.family == "encdec":
+            pe = _sinusoid(pos, cfg.d_model, device=x.device).to(x.dtype)
+            x = x + pe[:, None]
+        feats, cache = dec.decode(params["decoder"], x, cache, pos,
+                                  tables=tables, page_size=page_size)
+        return cache, _logits(cfg, params, feats)[:, 0]
+
+    return decode_step

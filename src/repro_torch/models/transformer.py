@@ -11,8 +11,10 @@ leaf.  PyTorch runs eagerly, so the reference's ``lax.scan`` over the cycle
 is a Python loop over that axis.
 
 Three modes share the layer application: ``train`` (full sequence, no
-cache), ``prefill`` (full sequence, emits the decode cache) and ``decode``
-(one token, updates the cache in place).  The port has, in every mode, the
+cache), ``prefill`` (full sequence, or a suffix against a cached prefix;
+emits the decode cache) and ``decode`` (one token, updates the cache in
+place: the contiguous cache or, for paged serving, a page pool read
+through per-row page tables).  The port has, in every mode, the
 ``attn`` mixer with a dense FFN and the whisper decoder's cross-attention,
 and the recurrentgemma hybrid's ``recurrent`` (RG-LRU) and ``local_attn``
 (sliding window, ring-buffer cache) mixers; and the ``rwkv`` mixer with the
@@ -170,6 +172,36 @@ def _at(tree, i: int):
     return cm.tree_map(lambda t: t[i], tree)
 
 
+#: cache leaves that page (global, unbounded-growth KV); every other leaf is
+#: *resident* — bounded per-row state (ring-buffer window, recurrent
+#: carries, precomputed cross K/V) that stays slot-granular.  The reference
+#: also pages ``mla``'s latents; that mixer is not ported (ROADMAP A8.3).
+_PAGED_MIXER_LEAVES = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope")}
+
+
+def layer_cache_paged(cfg, ld: LayerDef, batch: int, seq_len: int,
+                      pool_pages: int, page_size: int, device) -> dict:
+    """Like :func:`layer_cache`, but pageable leaves take the pool layout
+    ``(pool_pages + 1, page_size, K, hd)`` — row 0 is the null page —
+    shared across batch rows through per-row page tables.  Resident leaves
+    keep their slot-granular ``(batch, ...)`` layout."""
+    c = layer_cache(cfg, ld, batch, seq_len, device)
+    if ld.mixer == "attn":
+        K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        shape = (pool_pages + 1, page_size, K, hd)
+        pdt = torch_dtype(cfg.param_dtype)
+        c["k"] = torch.zeros(shape, dtype=pdt, device=device)
+        c["v"] = torch.zeros(shape, dtype=pdt, device=device)
+    return c
+
+
+def layer_paged_flags(cfg, ld: LayerDef) -> dict:
+    """Cache-structured tree of bools: True on pageable leaves."""
+    paged = _PAGED_MIXER_LEAVES.get(ld.mixer, ())
+    base = layer_cache(cfg, ld, 1, 2, "meta")       # leaf names only
+    return {name: name in paged for name in base}
+
+
 # ---------------------------------------------------------------------------
 # layer application
 
@@ -195,16 +227,21 @@ def apply_layer_train(cfg, ld, p, x, positions, ctx, bidirectional=False):
     return x + ffn_mod.ffn(cfg, p["ffn"], h2)
 
 
-def apply_layer_prefill(cfg, ld, p, x, positions, ctx):
+def apply_layer_prefill(cfg, ld, p, x, positions, ctx, past=None, past_len=0):
     """Train-path compute + emit the decode cache (sized to the prompt; the
-    caller right-pads it to max_seq)."""
+    caller right-pads it to max_seq).  ``past`` (prefix-cache reuse) carries
+    this layer's already-computed prefix K/V; only pageable mixers take it —
+    the engine gates prefix sharing to stacks made purely of those."""
+    if past is not None and ld.mixer not in _PAGED_MIXER_LEAVES:
+        raise ValueError(f"prefix reuse unsupported for mixer {ld.mixer!r}")
     h = cm.apply_norm(cfg, p["ln1"], x)
     if ld.mixer == "recurrent":
         out, (hf, conv) = rglru_mod.rglru_block(cfg, p["mixer"], h)
         cache = {"h": hf, "conv": conv}
     else:
         window = cfg.local_window if ld.mixer == "local_attn" else None
-        out, cache = attn.prefill_attention(cfg, p["mixer"], h, positions, window=window)
+        out, cache = attn.prefill_attention(cfg, p["mixer"], h, positions, window=window,
+                                            past=past, past_len=past_len)
     x = x + out
     if ld.cross:
         hc = cm.apply_norm(cfg, p["ln_cross"], x)
@@ -215,13 +252,19 @@ def apply_layer_prefill(cfg, ld, p, x, positions, ctx):
     return x + ffn_mod.ffn(cfg, p["ffn"], h2), cache
 
 
-def apply_layer_decode(cfg, ld, p, x, cache, pos):
-    """x: (B,1,d). Updates ``cache`` in place; returns x."""
+def apply_layer_decode(cfg, ld, p, x, cache, pos, tables=None, page_size=None):
+    """x: (B,1,d). Updates ``cache`` in place; returns x.  With ``tables``
+    (paged serving) the attn leaves are a shared page pool read through
+    per-row page tables; resident leaves keep per-row state."""
     h = cm.apply_norm(cfg, p["ln1"], x)
     if ld.mixer == "recurrent":
         out, hf, conv = rglru_mod.rglru_decode(cfg, p["mixer"], h, cache["h"], cache["conv"])
         cache["h"].copy_(hf)
         cache["conv"].copy_(conv)
+    elif ld.mixer == "attn" and tables is not None:
+        out, _ = attn.paged_decode_attention(cfg, p["mixer"], h,
+                                             {"k": cache["k"], "v": cache["v"]}, pos,
+                                             tables, page_size=page_size)
     else:
         window = cfg.local_window if ld.mixer == "local_attn" else None
         out, _ = attn.decode_attention(cfg, p["mixer"], h,
@@ -262,33 +305,46 @@ class Stack:
         for i, d in enumerate(self.suffix):
             yield "suffix", str(i), None, d, p["suffix"][str(i)]
 
-    # -- specs --------------------------------------------------------------
-    def specs(self) -> dict:
-        s = {}
-        if self.prefix:
-            s["prefix"] = {str(i): layer_specs(self.cfg, d)
-                           for i, d in enumerate(self.prefix)}
-        if self.reps:
-            s["blocks"] = {str(i): stack_specs(layer_specs(self.cfg, d), self.reps)
-                           for i, d in enumerate(self.cycle)}
-        if self.suffix:
-            s["suffix"] = {str(i): layer_specs(self.cfg, d)
-                           for i, d in enumerate(self.suffix)}
-        return s
-
-    def cache(self, batch: int, seq_len: int, device) -> dict:
+    def _groups(self, layer_fn, stacked_fn) -> dict:
+        """A tree in the stack's layout (specs, caches, flags): ``layer_fn(d)``
+        per prefix and suffix layer, ``stacked_fn(d)`` per layer of the
+        repeated cycle."""
         c = {}
         if self.prefix:
-            c["prefix"] = {str(i): layer_cache(self.cfg, d, batch, seq_len, device)
-                           for i, d in enumerate(self.prefix)}
+            c["prefix"] = {str(i): layer_fn(d) for i, d in enumerate(self.prefix)}
         if self.reps:
-            c["blocks"] = {str(i): stack_cache(
-                layer_cache(self.cfg, d, batch, seq_len, device), self.reps)
-                for i, d in enumerate(self.cycle)}
+            c["blocks"] = {str(i): stacked_fn(d) for i, d in enumerate(self.cycle)}
         if self.suffix:
-            c["suffix"] = {str(i): layer_cache(self.cfg, d, batch, seq_len, device)
-                           for i, d in enumerate(self.suffix)}
+            c["suffix"] = {str(i): layer_fn(d) for i, d in enumerate(self.suffix)}
         return c
+
+    # -- specs --------------------------------------------------------------
+    def specs(self) -> dict:
+        def ls(d):
+            return layer_specs(self.cfg, d)
+        return self._groups(ls, lambda d: stack_specs(ls(d), self.reps))
+
+    def cache(self, batch: int, seq_len: int, device) -> dict:
+        def lc(d):
+            return layer_cache(self.cfg, d, batch, seq_len, device)
+        return self._groups(lc, lambda d: stack_cache(lc(d), self.reps))
+
+    def paged_cache(self, batch: int, seq_len: int, pool_pages: int, page_size: int,
+                    device) -> dict:
+        """Decode cache with pageable leaves in pool layout (null page at
+        row 0); ``seq_len`` still sizes the resident leaves."""
+        def lc(d):
+            return layer_cache_paged(self.cfg, d, batch, seq_len, pool_pages, page_size,
+                                     device)
+        return self._groups(lc, lambda d: stack_cache(lc(d), self.reps))
+
+    def paged_flags(self) -> dict:
+        """Cache-structured bool tree: True on pageable (pool-layout) leaves.
+        Bools under ``blocks`` are not layer-stacked: a leaf's pagedness is
+        the same in every repetition of the cycle."""
+        def flags(d):
+            return layer_paged_flags(self.cfg, d)
+        return self._groups(flags, flags)
 
     # -- forward ------------------------------------------------------------
     def train(self, p: dict, x, positions, ctx=None):
@@ -300,12 +356,19 @@ class Stack:
         for d in self.defs:
             _require_ported(d, serving=True)
 
-    def prefill(self, p: dict, x, positions, ctx=None):
+    def prefill(self, p: dict, x, positions, ctx=None, past=None, past_len=0):
+        """``past`` (prefix-cache reuse): a cache-structured tree of this
+        stack's prefix K/V at length ``past_len``; only the suffix in ``x``
+        is computed and the emitted cache covers that suffix."""
         self._require_serving()
         caches: dict = {}
         stacked: dict = {}
         for group, key, r, d, lp in self._layers(p):
-            x, c = apply_layer_prefill(self.cfg, d, lp, x, positions, ctx)
+            lpast = None
+            if past is not None:
+                lpast = past[group][key] if r is None else _at(past[group][key], r)
+            x, c = apply_layer_prefill(self.cfg, d, lp, x, positions, ctx,
+                                       past=lpast, past_len=past_len)
             if r is None:
                 caches.setdefault(group, {})[key] = c
             else:
@@ -316,10 +379,11 @@ class Stack:
                                 for key, cs in stacked.items()}
         return x, caches
 
-    def decode(self, p: dict, x, caches: dict, pos):
-        """One token; ``caches`` is updated in place and returned."""
+    def decode(self, p: dict, x, caches: dict, pos, tables=None, page_size=None):
+        """One token; ``caches`` is updated in place and returned.  With
+        ``tables`` the pageable leaves are pools read through them."""
         self._require_serving()
         for group, key, r, d, lp in self._layers(p):
             c = caches[group][key] if r is None else _at(caches[group][key], r)
-            x = apply_layer_decode(self.cfg, d, lp, x, c, pos)
+            x = apply_layer_decode(self.cfg, d, lp, x, c, pos, tables, page_size)
         return x, caches

@@ -12,6 +12,15 @@ in prompt order, and decode then reads the wrong positions).
 ``write_slots`` is the continuous-batching primitive: it scatters the batch
 rows of one cache into chosen batch slots of the shared decode cache.  It
 writes in place, which is what the reference's buffer donation buys it.
+
+``write_prefill_paged`` / ``gather_pages`` are the paged-serving variants:
+pageable leaves (global attn K/V) live in a shared ``(num_pages+1,
+page_size, ...)`` pool indexed through per-row page tables, while resident
+leaves (ring-buffer window, recurrent carries, cross K/V) keep the
+slot-granular layout.  A bool ``flags`` tree (from
+``repro_torch.models.paged_cache_flags``) tells the two layouts apart —
+leaf names alone cannot (``k``/``v`` is paged under global attention but
+resident under a local ring buffer).  The scatter writes the pool in place.
 """
 from __future__ import annotations
 
@@ -86,3 +95,78 @@ def write_slots(cache, rows, slots):
 
     _map_with_path(f, cache, rows)
     return cache
+
+
+def _index(ids, device) -> torch.Tensor:
+    return torch.as_tensor(ids, dtype=torch.int64, device=device)
+
+
+def write_prefill_paged(flags, cache, prefill_cache, pages, slot, prompt_len: int,
+                        page_size: int):
+    """Scatter one B=1 prefill into the paged decode cache, in place;
+    returns ``cache``.
+
+    Pageable leaves: the prefilled tokens, zero-padded to whole pages, go
+    into pool rows ``pages`` — one page id per token block, in block order.
+    Prefix reuse passes only the *suffix* prefill here with the suffix's
+    private pages; the suffix always starts page-aligned because only whole
+    pages are ever shared.  Resident leaves: the row is fitted
+    (``extend_cache`` semantics, ring roll included) and written at batch
+    ``slot``.
+    """
+    def f(path, flag, dst, src):
+        src = src.to(dst.dtype)
+        stacked = _stacked(path)
+        if flag:
+            s = src[:, 0] if stacked else src[0]        # drop the B=1 axis
+            ax = 1 if stacked else 0                    # seq axis after the drop
+            n = len(pages)
+            pad = n * page_size - s.shape[ax]
+            if pad:
+                shape = list(s.shape)
+                shape[ax] = pad
+                s = torch.cat([s, s.new_zeros(shape)], dim=ax)
+            s = s.reshape(s.shape[:ax] + (n, page_size) + s.shape[ax + 1:])
+            idx = _index(pages, dst.device)
+            if stacked:
+                dst[:, idx] = s
+            else:
+                dst[idx] = s
+            return
+        name = path[-1]
+        tmpl = dst[:, :1] if stacked else dst[:1]
+        if name in _SEQ_LEAVES:          # before the shape test: a full window rolls
+            src = _fit_seq(name, tmpl, src, prompt_len)
+        elif src.shape != tmpl.shape:
+            raise ValueError(
+                f"cache leaf {name!r}: prefill shape {tuple(src.shape)} does not fit "
+                f"decode row {tuple(tmpl.shape)}")
+        idx = _index([slot], dst.device)
+        if stacked:
+            dst[:, idx] = src
+        else:
+            dst[idx] = src
+
+    _map_with_path(f, flags, cache, prefill_cache)
+    return cache
+
+
+def gather_pages(flags, cache, pages):
+    """Gather pool pages into contiguous past leaves for prefix reuse.
+
+    Every leaf must be pageable (prefix sharing is gated to pure attn
+    stacks); returns ``(1, n_pages * page_size, ...)`` leaves (with the
+    leading layer axis kept for stacked ``blocks`` leaves) shaped like a B=1
+    prefill of the shared prefix.  The gather copies.
+    """
+    def f(path, flag, leaf):
+        if not flag:
+            raise ValueError(f"prefix gather hit a non-paged leaf {path[-1]!r}")
+        idx = _index(pages, leaf.device)
+        if _stacked(path):
+            g = leaf[:, idx]                            # (reps, n, ps, ...)
+            return g.reshape((g.shape[0], 1, g.shape[1] * g.shape[2]) + g.shape[3:])
+        g = leaf[idx]                                   # (n, ps, ...)
+        return g.reshape((1, g.shape[0] * g.shape[1]) + g.shape[2:])
+
+    return _map_with_path(f, flags, cache)

@@ -1,5 +1,5 @@
 """LM serving engine: prefill + decode over the KV cache — PyTorch port of
-``repro/serving/engine.py`` (slot-granular layout).
+``repro/serving/engine.py``.
 
 Two serving modes share the prefill and decode steps:
 
@@ -11,8 +11,23 @@ Two serving modes share the prefill and decode steps:
   owns an independent timeline: a freed slot is re-primed from a fresh B=1
   prefill and the per-row position vector keeps every other sequence exact.
 
-Every batch slot owns a contiguous ``max_seq`` row of the decode cache.  The
-paged layout (``paged=True`` in the reference) is the next slice of the port.
+KV storage comes in two layouts:
+
+- **slot-granular** (default) — every batch slot owns a contiguous
+  ``max_seq`` row of the decode cache, whether the request uses 9 tokens or
+  all of them.
+- **paged** (``paged=True``) — global-attention K/V live in a shared pool
+  of fixed-size token pages (``serving/kv_pages.py``) addressed through
+  per-row page tables; pages are allocated on demand as sequences grow and
+  refcounted so requests sharing a prompt prefix share its pages (prefix
+  cache: suffix-only prefill).  Admission reserves a request's worst-case
+  page need and refuses with a structured ``QUEUE_SATURATED`` (and
+  ``retry_after_s``) when the pool cannot hold it; the reservation is what
+  guarantees that mid-decode page allocation never fails.  Bounded per-row
+  state (ring-buffer windows, recurrent carries, cross K/V) stays
+  slot-granular, and archs with no pageable leaves (recurrentgemma-9b) fall
+  back to the slot-granular path.  The pool is written in place on the
+  engine's device; the page tables are uploaded once per change.
 
 The engine runs on the card unless it is given ``device="cpu"``.  Per-request
 telemetry (TTFT, decode tokens/s) is stamped through the injected ``clock``.
@@ -31,10 +46,14 @@ import torch
 from repro_torch.configs.base import torch_dtype
 from repro_torch.core.clock import SYSTEM_CLOCK, Clock
 from repro_torch.core.errors import AdmissionRefused, ErrorCode
-from repro_torch.models import (build_decode_step, build_prefill_step,
-                                decode_cache, model_specs)
+from repro_torch.models import (build_decode_step, build_decode_step_paged,
+                                build_prefill_past_step, build_prefill_step,
+                                decode_cache, decode_cache_paged, model_specs,
+                                paged_cache_flags, paged_support)
 from repro_torch.models.common import init_params, resolve_device, tree_leaves
-from repro_torch.serving.cache_utils import extend_cache, write_slots
+from repro_torch.serving.cache_utils import (extend_cache, gather_pages,
+                                             write_prefill_paged, write_slots)
+from repro_torch.serving.kv_pages import PagePool, PrefixCache
 
 
 @dataclasses.dataclass
@@ -52,6 +71,9 @@ class Request:
     finished_s: Optional[float] = None
     #: True when the request finished after its deadline
     expired: bool = False
+    #: pages reserved against the kv pool at admission (paged mode only;
+    #: engine bookkeeping, not wire state)
+    reserved_pages: int = 0
 
     @property
     def ttft_ms(self) -> Optional[float]:
@@ -78,6 +100,9 @@ class _Slot:
     request: Optional[Request] = None
     pos: int = 0                        # next cache position this row writes
     token: int = 0                      # last emitted token (next decode input)
+    #: page ids owned by this row, in block order (paged mode; includes
+    #: shared prefix pages — every page holds one of the request's refs)
+    pages: List[int] = dataclasses.field(default_factory=list)
 
 
 class ServingEngine:
@@ -88,15 +113,17 @@ class ServingEngine:
     concurrently with each other — they share the steps and metrics.
     Continuous-path entry points are thread-safe; ``submit`` may be called
     from many threads while a driver thread runs ``step``.
+
+    In paged mode ``max_seq`` is the per-request token cap (the page-table
+    width); aggregate capacity is the page pool, not ``batch_size ×
+    max_seq``, so one request may exceed what one slot-granular row could
+    hold.
     """
 
     def __init__(self, cfg, params=None, *, device=None, batch_size: int = 2,
                  max_seq: int = 128, seed: int = 0, paged: bool = False,
-                 clock: Optional[Clock] = None):
-        if paged:
-            raise NotImplementedError(
-                "paged KV serving is the next slice of the port (ROADMAP A5/A6: "
-                "write_prefill_paged, gather_pages, paged_decode_attention)")
+                 page_size: int = 16, pool_pages: Optional[int] = None,
+                 prefix_sharing: bool = True, clock: Optional[Clock] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.batch_size = batch_size
@@ -110,7 +137,34 @@ class ServingEngine:
                                  f"engine on {self.device}")
         self.params = params
         self._prefill = build_prefill_step(cfg)
-        self._decode = build_decode_step(cfg)
+        self.paged = bool(paged)
+        self.page_size = int(page_size)
+        self.pool_pages = 0
+        self._pool: Optional[PagePool] = None
+        self._prefix: Optional[PrefixCache] = None
+        self._tables: Optional[np.ndarray] = None
+        if self.paged:
+            any_paged, prefix_ok = paged_support(cfg)
+            if any_paged:
+                self.max_pages = -(-max_seq // self.page_size)
+                self.pool_pages = (pool_pages if pool_pages is not None
+                                   else batch_size * self.max_pages)
+                self._flags = paged_cache_flags(cfg)
+                self._pool = PagePool(self.pool_pages, self.page_size)
+                self._tables = np.zeros((batch_size, self.max_pages), np.int32)
+                #: device copies of the table, by width; dropped on every change
+                self._tables_dev: Dict[int, torch.Tensor] = {}
+                self._decode = build_decode_step_paged(cfg, self.page_size)
+                if prefix_sharing and prefix_ok:
+                    self._prefix = PrefixCache(self._pool)
+                    self._prefill_past = build_prefill_past_step(cfg)
+            # archs with no pageable leaves (pure recurrent/ring stacks)
+            # fall through to the slot-granular path below
+        if self._pool is None:
+            self._decode = build_decode_step(cfg)
+        # fixed-batch ``generate`` always decodes contiguously (it owns a
+        # private cache and is the baseline the paged path is judged against)
+        self._decode_dense = build_decode_step(cfg) if self._pool is not None else None
         self.metrics: Dict[str, float] = {
             "prefill_ms": 0.0, "decode_ms": 0.0, "decode_steps": 0,
             "tokens": 0, "requests": 0, "deadline_expired": 0}
@@ -224,10 +278,11 @@ class ServingEngine:
         for i, r in enumerate(requests):
             self._emit(r, tok_np[i])
         self.metrics["tokens"] += len(requests)
+        decode = self._decode_dense or self._decode
         step = 0
         while any(not r.done for r in requests):
             t0 = time.perf_counter()
-            cache, logits = self._decode(self.params, cache, token, S + step)
+            cache, logits = decode(self.params, cache, token, S + step)
             token = torch.argmax(logits, dim=-1)[:, None]
             tok_np = token[:, 0].cpu().numpy()
             self.metrics["decode_ms"] += (time.perf_counter() - t0) * 1e3
@@ -245,20 +300,48 @@ class ServingEngine:
 
     # -- continuous batching --------------------------------------------------
     def submit(self, r: Request) -> Request:
-        """Validate, run admission, and enqueue.
+        """Validate, run admission, reserve kv pages, and enqueue.
 
         Raises :class:`AdmissionRefused`: ``BAD_REQUEST`` for malformed work,
-        or whatever the admission hook raises — without touching engine
-        state."""
+        ``QUEUE_SATURATED`` (with ``retry_after_s``) when the page pool
+        cannot hold the request's worst-case need, or whatever the admission
+        hook raises — all without touching engine state."""
         self._validate(r)
         if r.arrived_s is None:
             r.arrived_s = self.clock.monotonic()
         if self.admission is not None:
             self.admission(r, self)
         with self._work:
+            if self._pool is not None:
+                need = self._pages_needed(len(r.prompt) + r.max_new_tokens)
+                if not self._pool.reserve(need):
+                    raise AdmissionRefused(
+                        ErrorCode.QUEUE_SATURATED,
+                        f"{r.request_id}: queue saturated: kv page pool "
+                        f"cannot hold {need} more pages "
+                        f"({self._pool.reserved_pages}/{self._pool.num_pages}"
+                        f" reserved)",
+                        detail={"retry_after_s": self._retry_after_s(),
+                                "needed_pages": need,
+                                "pool_pages": self._pool.num_pages,
+                                "pool_pages_used": self._pool.used_pages(),
+                                "reserved_pages": self._pool.reserved_pages})
+                r.reserved_pages = need
             self._waiting.append(r)
             self._work.notify_all()
         return r
+
+    def _pages_needed(self, tokens: int) -> int:
+        return -(-tokens // self.page_size)
+
+    def _retry_after_s(self) -> float:
+        """Back-off hint for a saturated pool: roughly one batch drain of
+        the decode tokens currently owed, at the observed step rate."""
+        steps = self.metrics["decode_steps"]
+        step_s = (self.metrics["decode_ms"] / steps / 1e3) if steps else 0.05
+        b = self.backlog()
+        drain_steps = max(1.0, b["decode_tokens"] / max(1, self.batch_size))
+        return round(max(0.05, drain_steps * step_s), 3)
 
     def backlog(self) -> Dict[str, int]:
         """Work owed to queued + in-flight requests, split by phase:
@@ -280,6 +363,39 @@ class ServingEngine:
         with self._lock:
             return sum(1 for s in self._slots if s.request is not None)
 
+    def cached_prefix_tokens(self, prompt) -> int:
+        """Prompt tokens a submit would serve from the prefix cache (pure
+        probe: no refs taken, no LRU touch — safe for admission pricing)."""
+        if self._prefix is None:
+            return 0
+        with self._lock:
+            return self._prefix.probe(np.asarray(prompt, np.int32), self.page_size)
+
+    def pool_stats(self) -> Dict[str, float]:
+        """Paged-capacity telemetry for the descriptor/snapshot (empty dict
+        on slot-granular engines)."""
+        if self._pool is None:
+            return {}
+        with self._lock:
+            stats: Dict[str, float] = {
+                "page_size": self.page_size,
+                "pool_pages": self._pool.num_pages,
+                "pool_pages_used": self._pool.used_pages(),
+                "pool_pages_free": self._pool.free_pages(),
+                "pool_utilization": round(self._pool.utilization(), 4),
+            }
+            if self._prefix is not None:
+                stats["prefix_hit_rate"] = round(self._prefix.hit_rate(), 4)
+                stats["prefix_cached_tokens"] = self._prefix.hit_tokens
+            return stats
+
+    def audit_pages(self) -> Dict[str, int]:
+        """Leak audit of the page pool (consistency asserted inside)."""
+        if self._pool is None:
+            return {}
+        with self._lock:
+            return self._pool.audit()
+
     def _prime_fn(self, batch, slot: int) -> torch.Tensor:
         """Admission: B=1 prefill → fit into a max_seq row → write the row
         into the shared decode cache at ``slot`` → argmax first token.  The
@@ -293,29 +409,102 @@ class ServingEngine:
         write_slots(self._cb_cache, row, [slot])
         return torch.argmax(logits, dim=-1)
 
+    def _prime_paged_fn(self, batch, pages: List[int], slot: int) -> torch.Tensor:
+        """Paged admission: B=1 prefill → scatter its token blocks into pool
+        pages (resident leaves into the batch row) → argmax first token."""
+        S = batch["tokens"].shape[1]
+        pcache, logits = self._prefill(self.params, batch)
+        write_prefill_paged(self._flags, self._cb_cache, pcache, pages, slot, S,
+                            self.page_size)
+        return torch.argmax(logits, dim=-1)
+
+    def _prime_past_fn(self, batch, pages: List[int], shared: List[int],
+                       slot: int) -> torch.Tensor:
+        """Prefix-hit admission: gather the shared prefix pages into
+        contiguous past K/V → suffix-only prefill against it → scatter the
+        suffix blocks into the request's private pages."""
+        S = batch["tokens"].shape[1]
+        past = gather_pages(self._flags, self._cb_cache, shared)
+        pcache, logits = self._prefill_past(self.params, batch, past)
+        write_prefill_paged(self._flags, self._cb_cache, pcache, pages, slot, S,
+                            self.page_size)
+        return torch.argmax(logits, dim=-1)
+
+    def _alloc_pages(self, n: int) -> List[int]:
+        """Allocate for already-reserved work, evicting cache-only prefix
+        pages as needed.  Conservative reservations guarantee success: live
+        usage never exceeds the reserved total, and everything else in the
+        pool is an evictable cache reference."""
+        if n == 0:
+            return []
+        while (self._pool.free_pages() < n and self._prefix is not None
+               and self._prefix.evict_one()):
+            pass
+        return self._pool.alloc(n)
+
+    def _set_table_row(self, index: int, pages: List[int]) -> None:
+        self._tables[index, :] = 0
+        self._tables[index, :len(pages)] = pages
+        self._tables_dev.clear()
+
     def _prime_slot(self, slot: _Slot, r: Request) -> None:
         """B=1 prefill at the prompt's natural length, written into the
-        slot's row."""
+        slot's row (slot-granular) or the request's pages (paged)."""
         S = len(r.prompt)
+        prompt = np.asarray(r.prompt, np.int32)
         if self._cb_cache is None:
-            self._cb_cache = decode_cache(self.cfg, self.batch_size, self.max_seq,
-                                          self.device)
-        batch = {"tokens": self._tokens(np.asarray(r.prompt, np.int32)[None, :]),
-                 **self._batch_extras(1)}
+            self._cb_cache = (
+                decode_cache_paged(self.cfg, self.batch_size, self.max_seq,
+                                   self.pool_pages, self.page_size, self.device)
+                if self._pool is not None
+                else decode_cache(self.cfg, self.batch_size, self.max_seq, self.device))
         t0 = time.perf_counter()
-        tok = int(self._prime_fn(batch, slot.index)[0])   # waits for the device
+        if self._pool is not None:
+            shared: List[int] = []
+            if self._prefix is not None:
+                _, shared = self._prefix.lookup(prompt, self.page_size)
+            prefix_tokens = len(shared) * self.page_size
+            fresh = self._alloc_pages(self._pages_needed(S) - len(shared))
+            slot.pages = list(shared) + fresh
+            self._set_table_row(slot.index, slot.pages)
+            suffix = prompt[prefix_tokens:]
+            batch = {"tokens": self._tokens(suffix[None, :]), **self._batch_extras(1)}
+            if shared:
+                tok = self._prime_past_fn(batch, fresh, shared, slot.index)
+            else:
+                tok = self._prime_paged_fn(batch, fresh, slot.index)
+            if self._prefix is not None:
+                # register this prompt's full blocks for future sharers
+                self._prefix.insert(prompt, slot.pages, self.page_size)
+            pf_tokens = len(suffix)
+        else:
+            batch = {"tokens": self._tokens(prompt[None, :]), **self._batch_extras(1)}
+            tok = self._prime_fn(batch, slot.index)
+            pf_tokens = S
+        tok = int(tok[0])                                 # waits for the device
         ms = (time.perf_counter() - t0) * 1e3
         self.metrics["prefill_ms"] += ms
         if self.on_prefill_ms is not None:
-            self.on_prefill_ms(S, ms)
+            self.on_prefill_ms(pf_tokens, ms)
         slot.request, slot.pos, slot.token = r, S, tok
         self._emit(r, tok)
         self.metrics["tokens"] += 1
         if r.done:                       # max_new_tokens == 1
             self._finish(slot)
 
+    def _release(self, slot: _Slot) -> None:
+        """Return a row's page refs and its request's reservation."""
+        for pid in slot.pages:
+            self._pool.decref(pid)
+        slot.pages = []
+        self._pool.unreserve(slot.request.reserved_pages)
+        slot.request.reserved_pages = 0
+        self._set_table_row(slot.index, [])
+
     def _finish(self, slot: _Slot) -> None:
         r = slot.request
+        if self._pool is not None:
+            self._release(slot)
         slot.request, slot.pos, slot.token = None, 0, 0
         self.metrics["requests"] += 1
         if self.on_complete is not None:
@@ -342,9 +531,11 @@ class ServingEngine:
             for s in self._slots:
                 tokens[s.index, 0] = s.token
                 posv[s.index] = s.pos
+            args = (self._tokens(tokens), self._tokens(posv))
+            if self._pool is not None:
+                args += (self._live_tables(live),)
             t0 = time.perf_counter()
-            self._cb_cache, logits = self._decode(
-                self.params, self._cb_cache, self._tokens(tokens), self._tokens(posv))
+            self._cb_cache, logits = self._decode(self.params, self._cb_cache, *args)
             tok = torch.argmax(logits, dim=-1).cpu().numpy()   # waits for the device
             ms = (time.perf_counter() - t0) * 1e3
             self.metrics["decode_ms"] += ms
@@ -360,6 +551,35 @@ class ServingEngine:
             self.metrics["tokens"] += len(live)
             return len(live)
 
+    def _live_tables(self, live: List[_Slot]) -> torch.Tensor:
+        """Grow each live row into the page its write position reaches, and
+        return the device page table cropped to the widest live row."""
+        width = 0
+        for s in live:
+            blk = s.pos // self.page_size
+            if blk >= len(s.pages):
+                # on-demand growth: this step's write position crossed into
+                # a new block; the admission-time reservation guarantees
+                # the allocation succeeds
+                s.pages.extend(self._alloc_pages(1))
+                self._tables[s.index, blk] = s.pages[-1]
+                self._tables_dev.clear()
+            width = max(width, len(s.pages))
+        # attend only over live pages: short requests read a few pages
+        # instead of a max_seq-shaped row.  Wide tables round up to powers
+        # of two, as the reference's do to bound its compiled variants, so
+        # the gather reads the same columns
+        if self.max_pages > 16:
+            width = 1 << (width - 1).bit_length()
+        width = min(width, self.max_pages)
+        # tables change only on admission, growth and finish; the steps in
+        # between reuse the uploaded copy for their width
+        tables = self._tables_dev.get(width)
+        if tables is None:
+            tables = self._tokens(self._tables[:, :width])
+            self._tables_dev[width] = tables
+        return tables
+
     def drain(self) -> None:
         """Run ``step`` until the queue and every slot are empty."""
         while True:
@@ -371,12 +591,21 @@ class ServingEngine:
             self.step()
 
     def flush(self) -> None:
-        """Drop all queued and in-flight work and reset the decode cache.
-        Callers guarantee no invoker is waiting on the flushed requests."""
+        """Drop all queued and in-flight work: release every reservation and
+        page, clear the prefix cache, reset the decode cache.  Callers
+        guarantee no invoker is waiting on the flushed requests."""
         with self._work:
+            if self._pool is not None:
+                for r in self._waiting:
+                    self._pool.unreserve(r.reserved_pages)
+                    r.reserved_pages = 0
             self._waiting.clear()
             for s in self._slots:
+                if s.request is not None and self._pool is not None:
+                    self._release(s)
                 s.request, s.pos, s.token = None, 0, 0
+            if self._prefix is not None:
+                self._prefix.flush()
             self._cb_cache = None
             self._work.notify_all()
 

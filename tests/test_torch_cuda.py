@@ -368,3 +368,44 @@ def test_rglru_kernel_refuses_what_it_does_not_take(card, case):
         b = b[:, :32]
     with pytest.raises(ValueError):
         k2.rglru_scan(a, b)
+
+
+def test_paged_engine_matches_contiguous_on_the_card(card):
+    """A reduced internlm2-20b (fp32) served on the card: the paged engine,
+    with prefix hits and a request growing across page boundaries, gives
+    the contiguous engine's greedy tokens; the hits prefill only their
+    suffix; after drain no page is held by a request (the prefix cache keeps
+    one reference on each page it registered) and after flush none is used."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model_specs
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = reduced(get_config("internlm2-20b"))
+    params = init_params(model_specs(cfg), seed=1, device=card)
+    rng = np.random.default_rng(3)
+    common = rng.integers(1, cfg.vocab_size, 24)
+    prompts = [np.concatenate([common, rng.integers(1, cfg.vocab_size, n)]).astype(np.int32)
+               for n in (4, 7, 5)]
+    prompts += [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in (9, 17)]
+    max_new = [5, 21, 6, 8, 4]
+    paged = ServingEngine(cfg, params, device=card, batch_size=3, max_seq=64, paged=True,
+                          page_size=8, pool_pages=48)
+    prefilled = []
+    paged.on_prefill_ms = lambda n, ms: prefilled.append(n)
+    out = {}
+    for name, eng in (("paged", paged),
+                      ("contiguous", ServingEngine(cfg, params, device=card, batch_size=3,
+                                                   max_seq=64))):
+        reqs = [eng.submit(Request(f"r{i}", p, max_new_tokens=m))
+                for i, (p, m) in enumerate(zip(prompts, max_new))]
+        eng.drain()
+        assert all(r.done for r in reqs)
+        out[name] = [r.generated for r in reqs]
+    assert out["paged"] == out["contiguous"]
+    assert prefilled == [28, 7, 5, 9, 17]            # the two sharers prefill their suffix
+    audit = paged.audit_pages()
+    assert audit["reserved"] == 0 and audit["used"] == len(paged._prefix) > 0
+    assert paged.pool_stats()["prefix_hit_rate"] > 0
+    paged.flush()
+    assert paged.audit_pages() == {"pool_pages": 48, "used": 0, "free": 48, "reserved": 0}

@@ -172,5 +172,8 @@ def test_engine_needs_a_card_unless_cpu_is_asked():
     cfg = reduced(get_config("internlm2-20b"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(cfg)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ServingEngine(cfg, device="cpu", paged=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, paged=True)
+    # the paged layout runs on the CPU when asked, with the default pool
+    eng = ServingEngine(cfg, device="cpu", paged=True)
+    assert eng.pool_stats()["pool_pages"] == eng.batch_size * -(-eng.max_seq // 16)

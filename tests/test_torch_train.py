@@ -272,8 +272,9 @@ def test_checkpoint_from_port_restores_into_jax(tmp_path, param_dtype):
     state = init_train_state(tcfg, seed=4, device="cpu")
     state, _ = build_train_step(tcfg, AdamWConfig(lr=1e-2, warmup_steps=1))(
         state, _batch(2, 32, 128, seed=0)[1])
-    CheckpointManager(tmp_path, async_save=True).save(1, state, {"step": 1})
-    CheckpointManager(tmp_path).wait()
+    mgr = CheckpointManager(tmp_path, async_save=True)
+    mgr.save(1, state, {"step": 1})
+    mgr.wait()                          # the manager that started the write joins it
     jstate, meta = JaxCheckpointManager(tmp_path).restore(jax_init_train_state(jcfg))
     assert meta["step"] == 1 and int(jstate.opt.step) == 1
     ref = dict(cm.tree_leaves(state.params))
