@@ -41,39 +41,64 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
 5. serving — whisper-large-v3 at full width and depth (32 + 32 layers,
    d_model 1280, vocab 51866, 1500 frames) in bf16 with random seeded
    weights and ``use_pallas=True``: 16 requests through the continuous
-   batching engine (``submit`` then ``drain``) and one ``generate`` group.
+   batching engine (``submit`` then ``drain``; its decode steps as CUDA
+   graphs, the engine's default on the card) and one ``generate`` group.
    Every encoder attention of every admission must have launched K1.
-6. parity — the full-width fp32 encoder, layer by layer, through the kernel
+6. decode_graph whisper — on the same parameters, a graphed and an eager
+   engine (``decode_graphs=False``) serve one batch of 8 requests in turns
+   (graphed, eager, eager, graphed): greedy tokens identical in all four
+   runs; step ms, a window of 8 decode steps (device idle share, device
+   kernels, host launch calls), the graphs captured, their capture ms and
+   pool bytes, and one step's logits through the graph against the eager
+   step from the same cache state.  K1 must launch 32 times per admission.
+7. paged whisper — whisper-large-v3 with ``paged=True`` (batch 8, max_seq
+   448, page 16), 8 requests against the contiguous engine: K1 must launch
+   32 times per admission; no prefix cache.
+8. serving_substrate whisper — the port's ``LmServingAdapter`` at full size
+   on the same parameters: ``prepare`` (its calibration request captures
+   the first graph), then ``invoke`` from 8 threads at once with duck-typed
+   sessions; each request's measured time beside the surrogate's
+   prediction and their divergence; a 1 ms budget refused ``DEADLINE`` with
+   no device work, a 60 s budget served; ``snapshot()`` and the twin's
+   ``simulate``.  K1 must launch 32 times in every admission.
+9. parity — the full-width fp32 encoder, layer by layer, through the kernel
    and through the plain path from the same input; the largest difference
    must be <= 1e-3 (see ``parity_phase`` for why per layer).
-7. rg serving — recurrentgemma-9b at full width and depth (38 layers:
-   12 x (recurrent, recurrent, local_attn) + 2 recurrent; d_model 4096,
-   lru_width 4096, 16 heads of 256 with 1 kv head, d_ff 12288, vocab
-   256000, window 2048; 10.4 B parameters) in bf16 with random seeded
-   weights and ``use_pallas=True``: ``ServingEngine(batch_size=8,
-   max_seq=2304)``, 16 requests through ``submit``/``drain`` and one
-   ``generate`` group.  Most prompts are multiples of 64 and two are longer
-   than the window; K2 must launch 26 times (once per recurrent layer) for
-   every prefill whose length is a multiple of 64 and never otherwise, each
-   time on its TMA path.
-8. rg decode parity — full width in fp32 at depth 3: a 2112-token prompt
-   (past the 2048 window, so the prefill's window is ring-rolled) decoded
-   for 8 tokens; every step's logits against the full forward's, within
-   2e-3.
-9. paged serving — internlm2-20b at full size (48 layers, d_model 6144,
-   48 heads of 128 with 8 kv heads, d_ff 16384, vocab 92544; 19.9 B
-   parameters) in bf16 with random seeded weights: the paged engine
-   (``ServingEngine(paged=True)``, batch 8, max_seq 4096, page 16, the
-   default pool of 2048 pages) and the contiguous engine on the same
-   parameters serve 16 requests in turns (paged, contiguous, contiguous,
-   paged): 8 share a 1024-token prefix (64 pages) with suffixes of 17-512
-   tokens, 8 are unrelated (64-2048 tokens); 32 new tokens each, one 200.
-   Prime ms of prefix misses and hits with their bounds, step ms beside its
-   bound, tokens/s, ``pool_stats()`` and ``audit_pages()``.  Fails if a
-   prefix miss's first token differs from the contiguous engine's, a
-   request does not finish, a hit prefilled more than its suffix, or a page
-   is held by a request after drain or used after flush.
-10. paged parity — internlm2-20b at full width in fp32 (TF32 off) at depth
+10. rg serving — recurrentgemma-9b at full width and depth (38 layers:
+    12 x (recurrent, recurrent, local_attn) + 2 recurrent; d_model 4096,
+    lru_width 4096, 16 heads of 256 with 1 kv head, d_ff 12288, vocab
+    256000, window 2048; 10.4 B parameters) in bf16 with random seeded
+    weights and ``use_pallas=True``: ``ServingEngine(batch_size=8,
+    max_seq=2304)``, 16 requests through ``submit``/``drain`` and one
+    ``generate`` group.  Most prompts are multiples of 64 and two are
+    longer than the window; K2 must launch 26 times (once per recurrent
+    layer) for every prefill whose length is a multiple of 64 and never
+    otherwise, each time on its TMA path.
+11. decode_graph recurrentgemma — as phase 6 on those parameters (the
+    graph's warm-up puts back the recurrent carries it advances); K2's
+    launches there all on its TMA path.
+12. rg decode parity — full width in fp32 at depth 3: a 2112-token prompt
+    (past the 2048 window, so the prefill's window is ring-rolled) decoded
+    for 8 tokens; every step's logits against the full forward's, within
+    2e-3.
+13. paged serving — internlm2-20b at full size (48 layers, d_model 6144,
+    48 heads of 128 with 8 kv heads, d_ff 16384, vocab 92544; 19.9 B
+    parameters) in bf16 with random seeded weights: the paged engine
+    (``ServingEngine(paged=True)``, batch 8, max_seq 4096, page 16, the
+    default pool of 2048 pages) and the contiguous engine, both graphed, on
+    the same parameters serve 16 requests in turns (paged, contiguous,
+    contiguous, paged): 8 share a 1024-token prefix (64 pages) with suffixes
+    of 17-512 tokens, 8 are unrelated (64-2048 tokens); 32 new tokens each,
+    one 200.  Prime ms of prefix misses and hits with their bounds, step ms
+    beside its bound, tokens/s, ``pool_stats()`` and ``audit_pages()``.
+    Fails if a prefix miss's first token differs from the contiguous
+    engine's, a request does not finish, a hit prefilled more than its
+    suffix, or a page is held by a request after drain or used after flush.
+14. decode_graph internlm2 — as phase 6 on those parameters, paged (one
+    graph per table width) and contiguous.
+15. serving_substrate internlm2 — as phase 8 on those parameters, paged,
+    with 8 prompts sharing a 512-token prefix (prefix hits).
+16. paged parity — internlm2-20b at full width in fp32 (TF32 off) at depth
     4: decode through the page table and a prefix-hit prefill, layer by
     layer from the same input, within 1e-4 of the contiguous layer's
     largest output (the random stack amplifies rounding too much to hold
@@ -82,24 +107,21 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
     the contiguous engine's up to near-ties the full forward confirms; a
     small pool refuses with ``QUEUE_SATURATED`` and admits the same request
     after drain.
-11. paged whisper — whisper-large-v3 at full size with ``paged=True``
-    (batch 8, max_seq 448, page 16), 8 requests against the contiguous
-    engine: K1 must launch 32 times per admission; no prefix cache.
-12. train — rwkv6-7b at full width (d_model 4096, 64 heads of 64, d_ff
-   14336, vocab 65536) cut to 4 of 32 layers, bf16 params, fp32 moments,
-   ``use_pallas=True``: 3 steps of the port's launcher loop at global batch
-   8 x 4096 tokens in 4 microbatches.  K3 must launch once per layer and
-   microbatch (48 times; the backward recomputes through the plain chunked
-   version), loss and grad norm must be finite and every layer's mixer
-   parameters must receive a gradient.
-13. rg train — recurrentgemma-9b at full width cut to 3 of 38 layers (one
+17. train — rwkv6-7b at full width (d_model 4096, 64 heads of 64, d_ff
+    14336, vocab 65536) cut to 4 of 32 layers, bf16 params, fp32 moments,
+    ``use_pallas=True``: 3 steps of the port's launcher loop at global
+    batch 8 x 4096 tokens in 4 microbatches.  K3 must launch once per layer
+    and microbatch (48 times; the backward recomputes through the plain
+    chunked version), loss and grad norm must be finite and every layer's
+    mixer parameters must receive a gradient.
+18. rg train — recurrentgemma-9b at full width cut to 3 of 38 layers (one
     (recurrent, recurrent, local_attn) cycle; 2.76 B parameters with the
     untied 256000 x 4096 embedding and unembedding), bf16 params, fp32
     moments, ``use_pallas=True``: 3 steps of 8 x 4096 tokens in 4
     microbatches.  K2 must launch once per recurrent layer and microbatch
     (24 times, all on its TMA path); loss and grad norm finite; every
     recurrent layer's ``lam``, ``w_a`` and ``w_x`` must receive a gradient.
-14. train-parity — rwkv6-7b at full width in fp32, depth 2, B=1, S=1024:
+19. train-parity — rwkv6-7b at full width in fp32, depth 2, B=1, S=1024:
     the loss and its grads through K3 against the plain path, within 5e-3
     on the loss and 1e-3 relative on the grad norm.  Then the same for
     recurrentgemma-9b at depth 3 through K2.
@@ -111,6 +133,7 @@ phase, the ``{"kernels": [...]}`` line, and as the last line
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -664,9 +687,10 @@ def serving_phase(cfg, n_requests: int = 16) -> dict:
     res.update(encoder_breakdown(cfg, eng.params))
     emit({"phase": "serving", **res})
     emit({"phase": "profile", **profile_window(eng, cfg)})
+    params = eng.params
     del eng
     torch.cuda.empty_cache()
-    return res
+    return res, params
 
 
 def rg_serving_phase(cfg) -> dict:
@@ -693,9 +717,10 @@ def rg_serving_phase(cfg) -> dict:
     emit({"phase": "rg_serving", **res})
     res["profile"] = profile_window(eng, cfg, prompt_len=64)
     emit({"phase": "rg_profile", **res["profile"]})
+    params = eng.params
     del eng
     torch.cuda.empty_cache()
-    return res
+    return res, params
 
 
 def rg_decode_parity_phase(k2) -> dict:
@@ -800,23 +825,26 @@ def serve_trace(eng, trace, group=()) -> dict:
     requests (if any) through one ``generate`` call.  Every request must
     finish with in-vocabulary tokens and no logit may be NaN.  Returns the
     requests, each admission's prefilled tokens, ms and kernel launches (in
-    submit order: admission is FIFO), each continuous decode step's cached
-    tokens over its live rows, the engine's metrics over the continuous run
-    and its wall time, and the group's metrics, wall time and prefill
-    launches."""
+    submit order: admission is FIFO), each continuous decode step's ms, the
+    cached tokens the continuous steps attended over (each request's
+    prompt and tokens so far, for every token after its first), the
+    engine's metrics over the continuous run and its wall time, and the
+    group's metrics, wall time and prefill launches.  The decode step is
+    watched from outside (``step``, then ``last_logits``): a graphed
+    engine never calls its eager step function between captures."""
     from repro_torch.serving import Request
 
-    admissions, launched, steps, nan_flags = [], [], [], []
+    admissions, launched, step_ms, nan_flags = [], [], [], []
     eng.on_prefill_ms = lambda n, ms: admissions.append(dict(tokens=n, ms=ms))
-    wrapped = {k: getattr(eng, k) for k in ("_prefill", "_prefill_past", "_decode")
+    eng.on_step_ms = step_ms.append
+    wrapped = {k: getattr(eng, k) for k in ("_prefill", "_prefill_past")
                if getattr(eng, k, None) is not None}
 
-    def watch_decode(params, cache, token, pos, *rest):
-        if torch.is_tensor(pos):              # per-row positions: the continuous batch
-            steps.append(torch.where(pos > 0, pos + 1, 0).sum())    # stays on the device
-        cache, logits = wrapped["_decode"](params, cache, token, pos, *rest)
-        nan_flags.append(torch.isnan(logits).any())
-        return cache, logits
+    def watch_step():
+        live = type(eng).step(eng)
+        if live:
+            nan_flags.append(torch.isnan(eng.last_logits).any())
+        return live
 
     def watch_prefill(step):
         def run(*args):
@@ -829,7 +857,8 @@ def serve_trace(eng, trace, group=()) -> dict:
         return run
 
     for k, step in wrapped.items():
-        setattr(eng, k, watch_decode if k == "_decode" else watch_prefill(step))
+        setattr(eng, k, watch_prefill(step))
+    eng.step = watch_step
     before = dict(eng.metrics)
     reqs = [Request(rid, prompt, max_new_tokens=m) for rid, prompt, m, _ in trace]
     t0 = time.perf_counter()
@@ -837,9 +866,12 @@ def serve_trace(eng, trace, group=()) -> dict:
         eng.submit(r)
     eng.drain()
     wall_s = time.perf_counter() - t0
+    del eng.step
+    eng.on_step_ms = None
     metrics = {k: eng.metrics[k] - before[k] for k in before}
     out = dict(requests=reqs, admissions=admissions, wall_s=wall_s, metrics=metrics,
                step_ms=metrics["decode_ms"] / metrics["decode_steps"],
+               step_ms_all=step_ms, step_ms_median=float(np.median(step_ms)),
                tokens_per_s=metrics["tokens"] / wall_s)
     if group:
         before = dict(eng.metrics)
@@ -857,7 +889,8 @@ def serve_trace(eng, trace, group=()) -> dict:
     assert len(admissions) == len(launched) == len(reqs)
     for a, n in zip(admissions, launched):
         a["launches"] = n
-    out["step_kv_tokens"] = torch.stack(steps).tolist()
+    out["step_kv_tokens"] = sum(len(r.prompt) + j - 1 for r in reqs
+                                for j in range(2, r.max_new_tokens + 1))
     return out
 
 
@@ -918,10 +951,10 @@ def paged_run_summary(cfg, work, run, trace) -> dict:
         out["hit" if past else "miss"].append(dict(
             id=rid, prompt=len(prompt), prefilled=a["tokens"], ms=a["ms"],
             **prefill_bound(cfg, work, a["tokens"], past)))
-    kv = run["step_kv_tokens"]
-    res = dict(step_ms=run["step_ms"], decode_steps=run["metrics"]["decode_steps"],
-               step_bound_ms=decode_bound_ms(work, sum(kv) / len(kv)),
-               mean_cached_tokens_per_step=sum(kv) / len(kv),
+    kv = run["step_kv_tokens"] / run["metrics"]["decode_steps"]
+    res = dict(step_ms=run["step_ms"], step_ms_median=run["step_ms_median"],
+               decode_steps=run["metrics"]["decode_steps"],
+               step_bound_ms=decode_bound_ms(work, kv), mean_cached_tokens_per_step=kv,
                tokens=run["metrics"]["tokens"], tokens_per_s=run["tokens_per_s"],
                wall_s=run["wall_s"], prefill_ms=run["metrics"]["prefill_ms"])
     for kind in ("miss", "hit"):
@@ -963,7 +996,8 @@ def paged_serving_phase(cfg) -> dict:
     """internlm2-20b at full size (48 layers, 19.9 B parameters) in bf16
     with random seeded weights: the paged engine (batch 8, max_seq 4096,
     page 16, the default pool of 2048 pages) and the contiguous engine on
-    the same parameter tensors serve the same 16-request trace, in turns
+    the same parameter tensors, both with their decode steps as CUDA graphs
+    (the default on the card), serve the same 16-request trace, in turns
     (paged, contiguous, contiguous, paged; each run ends in ``flush``).  The
     first token of every prefix miss must equal the contiguous engine's (the
     same B=1 prefill); the greedy tokens of the rest are reported, not held:
@@ -992,7 +1026,7 @@ def paged_serving_phase(cfg) -> dict:
         if name == "paged":
             summary.update(check_paged_run(eng, run, trace, PAGED_PREFIX, "paged_serving"))
         else:
-            eng.flush()                       # drops the 6.4 GB contiguous cache
+            eng.flush()
         runs[name].append((run, summary))
     launches = read_counts()
     paged0, contig0 = runs["paged"][0][0], runs["contiguous"][0][0]
@@ -1024,9 +1058,9 @@ def paged_serving_phase(cfg) -> dict:
         contiguous_repeat_agreement=token_agreement(*(r["requests"] for r in contig_runs)),
         profile=profiles, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     emit({"phase": "paged_serving", **res})
-    del engines, params
+    del engines
     torch.cuda.empty_cache()
-    return res
+    return res, params
 
 
 def paged_parity_phase() -> dict:
@@ -1303,7 +1337,7 @@ def tree_get(tree, path: str):
     return tree
 
 
-def paged_whisper_phase(cfg) -> dict:
+def paged_whisper_phase(cfg, params) -> dict:
     """whisper-large-v3 at full size with ``paged=True`` (batch 8, max_seq
     448, page 16) and the contiguous engine on the same parameters serve 8
     requests in turns (paged, contiguous, contiguous, paged).  Every
@@ -1312,9 +1346,8 @@ def paged_whisper_phase(cfg) -> dict:
     from repro_torch.serving import ServingEngine
 
     torch.cuda.reset_peak_memory_stats()
-    paged = ServingEngine(cfg, batch_size=8, max_seq=448, paged=True, page_size=16, seed=0)
-    engines = {"paged": paged,
-               "contiguous": ServingEngine(cfg, paged.params, batch_size=8, max_seq=448)}
+    paged = ServingEngine(cfg, params, batch_size=8, max_seq=448, paged=True, page_size=16)
+    engines = {"paged": paged, "contiguous": ServingEngine(cfg, params, batch_size=8, max_seq=448)}
     rng = np.random.default_rng(9)
     trace = [(f"w{i}", rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32), int(m), False)
              for i, (n, m) in enumerate(zip(np.linspace(4, 64, 8), np.linspace(8, 40, 8)))]
@@ -1350,6 +1383,264 @@ def paged_whisper_phase(cfg) -> dict:
     emit({"phase": "paged_whisper", **res})
     del paged, engines
     torch.cuda.empty_cache()
+    return res
+
+
+#: decode_graph: one batch of 8 requests per arch (prompt lengths), 48 new
+#: tokens each, served by a graphed and an eager engine in turns
+GRAPH_NEW = 48
+GRAPH_LENGTHS = {"internlm2-20b": (64, 128, 192, 256, 384, 512, 768, 1024),
+                 "whisper-large-v3": (4, 8, 16, 24, 32, 40, 48, 64),
+                 "recurrentgemma-9b": (64, 100, 128, 256, 333, 512, 768, 1024)}
+
+
+def decode_window(eng, cfg, prompt_len: int, steps: int = 8) -> dict:
+    """Device busy and idle share over ``steps`` decode steps of a full
+    batch and nothing else: the batch is admitted and steps once (which
+    captures a graphed engine's graph) before the window opens.  The
+    window runs twice on the same prompts: on the host clock alone
+    (``wall_ms_unprofiled``), then under ``torch.profiler``, whose tracing
+    stretches the host's part of a step; ``device_idle_share_unprofiled``
+    sets the profiled busy time against the unprofiled wall time."""
+    from repro_torch.serving import Request
+
+    def window(run):
+        rng = np.random.default_rng(2)
+        for i in range(eng.batch_size):
+            eng.submit(Request(f"w{i}", rng.integers(0, cfg.vocab_size, prompt_len)
+                               .astype(np.int32), max_new_tokens=steps + 2))
+        eng.step()
+        torch.cuda.synchronize()
+        out = run(lambda: [eng.step() for _ in range(steps)])
+        eng.drain()
+        eng.flush()
+        return out
+
+    def wall(fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall_ms = window(wall)
+    res = window(device_profile)
+    if "profile_device_busy_ms" in res:
+        res["device_idle_share_unprofiled"] = 1 - res["profile_device_busy_ms"] / wall_ms
+    return dict(steps=steps, prompt=prompt_len, wall_ms_unprofiled=wall_ms, **res)
+
+
+def graph_logits_check(eng, cfg, prompt_len: int = 64) -> dict:
+    """One decode step's logits from the same cache state through the
+    eager step function and through the graph.  A full batch is admitted
+    and steps once; the next step's inputs then go through both (the K/V
+    the eager step writes are the ones the graph writes again; the
+    recurrent carries it advances are put back first).  The engine is
+    flushed after."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving import Request
+    from repro_torch.serving.engine import _CARRIES
+
+    rng = np.random.default_rng(3)
+    for i in range(eng.batch_size):
+        eng.submit(Request(f"l{i}", rng.integers(0, cfg.vocab_size, prompt_len + 3 * i)
+                           .astype(np.int32), max_new_tokens=4))
+    eng.step()
+    with torch.inference_mode():
+        live = [s for s in eng._slots if s.request is not None]
+        width = eng._grow_tables(live) if eng._pool is not None else None
+        inputs = eng._step_inputs(width)
+        carries = [(t, t.clone()) for path, t in tree_leaves(eng._cb_cache)
+                   if path.rsplit("/", 1)[-1] in _CARRIES]
+        _, eager = eng._decode(eng.params, eng._cb_cache, *inputs)
+        eager = eager.clone()
+        for t, saved in carries:
+            t.copy_(saved)
+        graph = eng._graphs.get(width) or eng._capture(width, inputs)
+        graph[0].replay()
+        graphed = graph[1].clone()
+    eng.flush()
+    return dict(rows=len(live), width=width, bit_equal=bool(torch.equal(graphed, eager)),
+                max_abs_diff=(graphed - eager).abs().max().item(),
+                argmax_equal=bool(torch.equal(graphed.argmax(-1), eager.argmax(-1))),
+                logit_abs_max=eager.abs().max().item())
+
+
+def graph_pool_bytes(eng):
+    """Bytes of the segments the caching allocator holds for the engine's
+    graph pool (``torch.cuda.memory_snapshot``)."""
+    if eng._graph_pool is None:
+        return 0
+    segments = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in s for s in segments):
+        return "not measured"
+    return sum(s["total_size"] for s in segments
+               if tuple(s.get("segment_pool_id", ())) == tuple(eng._graph_pool))
+
+
+def decode_graph_phase(cfg, params, layouts, max_seq: int, window_prompts) -> dict:
+    """``cfg`` at full size on ``params``: for each layout, a graphed and an
+    eager engine (``decode_graphs=False``) serve one batch of 8 requests
+    (``GRAPH_LENGTHS``, 48 new tokens each) in turns (graphed, eager,
+    eager, graphed).  Greedy tokens must be identical in all four runs.
+    Reported per engine: step ms (mean and median), tokens/s, peak memory;
+    a window of 8 decode steps at each of ``window_prompts`` (device idle
+    share, device kernels, host launch calls); for the graphed engine the graphs captured (by table
+    width), their capture ms and the pool's bytes, and one step's logits
+    through the graph against the eager step from the same cache state."""
+    from repro_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(11)
+    trace = [(f"d{i}", rng.integers(0, cfg.vocab_size, n).astype(np.int32), GRAPH_NEW, False)
+             for i, n in enumerate(GRAPH_LENGTHS[cfg.name])]
+    out = dict(arch=cfg.name, layers=cfg.num_layers, batch=8, max_seq=max_seq,
+               prompts=list(GRAPH_LENGTHS[cfg.name]), new_tokens=GRAPH_NEW, layouts={})
+    reset_counts()
+    for layout in layouts:
+        engines = {name: ServingEngine(cfg, params, batch_size=8, max_seq=max_seq,
+                                       paged=layout == "paged", page_size=16,
+                                       decode_graphs=name == "graphed")
+                   for name in ("graphed", "eager")}
+        runs = {"graphed": [], "eager": []}
+        for name in ("graphed", "eager", "eager", "graphed"):
+            eng = engines[name]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            run = serve_trace(eng, trace)
+            run["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            run["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+            eng.flush()
+            runs[name].append(run)
+        tokens = [[r.generated for r in run["requests"]] for rs in runs.values() for run in rs]
+        if any(t != tokens[0] for t in tokens):
+            raise AssertionError(f"decode_graph {cfg.name} {layout}: greedy tokens differ; "
+                                 "agreement graphed/eager "
+                                 f"{token_agreement(runs['graphed'][0]['requests'], runs['eager'][0]['requests'])}")
+        g = engines["graphed"]
+        res = dict(tokens_identical=True, tokens=runs["graphed"][0]["metrics"]["tokens"])
+        for key in ("step_ms", "step_ms_median", "tokens_per_s", "wall_s", "peak_mem_gb",
+                    "reserved_gb"):
+            res[key] = {name: [run[key] for run in rs] for name, rs in runs.items()}
+        res["prime_ms"] = {name: [run["metrics"]["prefill_ms"] / len(trace) for run in rs]
+                           for name, rs in runs.items()}
+        res["decode_steps"] = runs["graphed"][0]["metrics"]["decode_steps"]
+        res["logits"] = graph_logits_check(g, cfg, window_prompts[0])
+        res["windows"] = {p: {name: decode_window(eng, cfg, p) for name, eng in engines.items()}
+                          for p in window_prompts}
+        res["graphs"] = ["contiguous" if k is None else k for k in g.graph_capture_ms]
+        res["capture_ms"] = list(g.graph_capture_ms.values())
+        res["graph_pool_bytes"] = graph_pool_bytes(g)
+        out["layouts"][layout] = res
+        del engines, g, eng, runs
+        torch.cuda.empty_cache()
+    out["launches"] = read_counts()
+    # each layout: 4 runs of the trace, four batches of 8 per window prompt
+    # (two per engine) and one for the logits check
+    out["admissions"] = len(layouts) * (4 * len(trace) + (4 * len(window_prompts) + 1) * 8)
+    emit({"phase": f"decode_graph {cfg.name}", **out})
+    return out
+
+
+#: serving_substrate: 8 requests at once through the adapter, per arch
+SUBSTRATE_NEW = 32
+SUBSTRATE_PREFIX = 512
+
+
+def serving_substrate_phase(cfg, params, *, max_seq: int, paged: bool, prompts,
+                            k1_per_admission: int = 0) -> dict:
+    """The port's ``LmServingAdapter`` at full size on ``params``, driven as
+    a control plane drives it: ``prepare`` (the calibration request, where
+    the first decode graph is captured), then ``invoke`` with duck-typed
+    sessions from 8 threads at once, ``SUBSTRATE_NEW`` new tokens each.
+    Per request: the measured ``total_ms`` beside the surrogate's
+    ``predicted_total_ms`` (priced just before the invoke) and their
+    divergence as ``ServingSurrogate.divergence`` scores it.  Then a doomed
+    budget (1 ms) must be refused ``DEADLINE`` with no device work (engine
+    metrics and kernel launches unchanged) and a generous one (60 s)
+    served; ``snapshot()`` and the twin's ``simulate`` are reported.  Where
+    ``k1_per_admission`` is set (whisper), K1 must launch that many times
+    in every admission (the calibration's included)."""
+    import types
+
+    from repro_torch.core.errors import AdmissionRefused, ErrorCode
+    from repro_torch.substrates import LmServingAdapter
+
+    def session(tid, prompt, budget_ms=None):
+        return types.SimpleNamespace(task=types.SimpleNamespace(
+            task_id=tid, payload={"prompt": [int(t) for t in prompt],
+                                  "max_new_tokens": SUBSTRATE_NEW},
+            latency_budget_ms=budget_ms))
+
+    reset_counts()
+    allocated = torch.cuda.memory_allocated()
+    adapter = LmServingAdapter(cfg.name, cfg=cfg, params=params, batch_size=8, max_seq=max_seq,
+                               paged=paged, device="cuda")
+    t0 = time.perf_counter()
+    adapter.prepare(None)
+    prepare_s = time.perf_counter() - t0
+    twin = adapter.make_twin()
+    try:
+        def one(i):
+            s = session(f"s{i}", prompts[i])
+            sim = twin.surrogate.simulate(s.task)
+            raw = adapter.invoke(s)
+            if len(raw["output"]["tokens"]) != SUBSTRATE_NEW:
+                raise AssertionError(f"serving_substrate: {raw['output']}")
+            return dict(id=f"s{i}", prompt=len(prompts[i]), total_ms=raw["output"]["total_ms"],
+                        predicted_total_ms=sim["output"]["predicted_total_ms"],
+                        divergence=twin.surrogate.divergence(raw["output"], sim["output"]),
+                        ttft_ms=raw["telemetry"]["ttft_ms"],
+                        deadline_expired=raw["telemetry"]["deadline_expired"])
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            requests = list(pool.map(one, range(len(prompts))))
+        wall_s = time.perf_counter() - t0
+        with adapter.engine._lock:            # waits for a step in flight
+            metrics, counts = dict(adapter.engine.metrics), read_counts()
+        try:
+            adapter.invoke(session("doomed", prompts[0], budget_ms=1.0))
+            raise AssertionError("serving_substrate: a 1 ms budget was served")
+        except AdmissionRefused as e:
+            refusal = dict(code=e.code.value, message=e.message, detail=e.detail)
+            if e.code != ErrorCode.DEADLINE:
+                raise
+        with adapter.engine._lock:
+            untouched = adapter.engine.metrics == metrics and read_counts() == counts
+        if not untouched:
+            raise AssertionError("serving_substrate: the refused request reached the device")
+        generous = adapter.invoke(session("generous", prompts[1], budget_ms=60_000.0))
+        if generous["telemetry"]["deadline_expired"]:
+            raise AssertionError(f"serving_substrate: a 60 s budget expired: {generous}")
+        snapshot = adapter.snapshot().to_dict()
+        simulated = twin.surrogate.simulate(session("twin", prompts[0]).task)
+        engine = adapter.engine
+    finally:
+        adapter.close()
+    launches = read_counts()
+    admissions = len(prompts) + 2                 # the calibration and the generous request
+    if k1_per_admission and launches["flash_attention"] != k1_per_admission * admissions:
+        raise AssertionError(f"serving_substrate {cfg.name}: K1 launched "
+                             f"{launches['flash_attention']} times over {admissions} admissions")
+    res = dict(arch=cfg.name, layers=cfg.num_layers, paged=paged, max_seq=max_seq,
+               resource_id=adapter.resource_id, prepare_s=prepare_s, wall_s=wall_s,
+               requests=requests, refusal=refusal,
+               generous=dict(total_ms=generous["output"]["total_ms"],
+                             ttft_ms=generous["telemetry"]["ttft_ms"]),
+               snapshot=snapshot, twin_simulate=simulated["output"] | simulated["telemetry"],
+               graphs=["contiguous" if k is None else k for k in engine.graph_capture_ms],
+               capture_ms=list(engine.graph_capture_ms.values()), launches=launches,
+               k1_launches=launches["flash_attention"], admissions=admissions,
+               pool_stats=engine.pool_stats())
+    emit({"phase": f"serving_substrate {cfg.name}", **res})
+    # the adapter and its engine refer to each other (``on_complete``): only
+    # the cycle collector frees the engine's cache and the parameters
+    del engine, adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a leaked engine holds GBs (its cache, and the parameters through it)
+    if torch.cuda.memory_allocated() > allocated + (64 << 20):
+        raise AssertionError(f"serving_substrate {cfg.name}: {torch.cuda.memory_allocated()} "
+                             f"bytes allocated after the adapter closed, {allocated} before")
     return res
 
 
@@ -1527,10 +1818,19 @@ def device_profile(fn) -> dict:
     busy_ms = sum(ms for _, ms, _ in rows)
     if busy_ms == 0:                     # the profiler saw no device activity
         return {"profile": "not measured"}
+    # what the host asked of the driver: kernel launches, and graph launches
+    # (each runs a whole captured step's kernels)
+    host_calls = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU and e.key in LAUNCH_CALLS}
     return {"profile_wall_ms": wall_ms, "profile_device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms,
-            "device_launches": sum(n for _, _, n in rows),
+            "device_launches": sum(n for _, _, n in rows), "host_launch_calls": host_calls,
             "top_device_ms": [[k[:80], ms, n] for k, ms, n in rows[:10]]}
+
+
+#: runtime and driver calls that start work on the card
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch")
 
 
 def train_parity_phase(arch: str, layers: int, kernel, expected: int) -> dict:
@@ -1683,9 +1983,9 @@ def main() -> int:
 
     seconds = {}
 
-    def timed(name, fn, *args):
+    def timed(name, fn, *args, **kw):
         t = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kw)
         seconds[name] = time.perf_counter() - t
         return out
 
@@ -1697,14 +1997,37 @@ def main() -> int:
                    lambda: k2_breakdown.breakdown(k2_variants), linear_recurrence, rglru_ref,
                    rglru_sequential)
     cfg = dataclasses.replace(get_config("whisper-large-v3"), use_pallas=True)
-    serving = timed("serving", serving_phase, cfg)
+    serving, params = timed("serving", serving_phase, cfg)
+    graphs = {"whisper-large-v3": timed("decode_graph whisper", decode_graph_phase, cfg, params,
+                                        ("contiguous",), 448, (16,))}
+    paged_whisper = timed("paged_whisper", paged_whisper_phase, cfg, params)
+    rng = np.random.default_rng(12)
+    substrate = {"whisper-large-v3": timed(
+        "serving_substrate whisper", serving_substrate_phase, cfg, params, max_seq=448,
+        paged=False, prompts=[rng.integers(0, cfg.vocab_size, n) for n in range(8, 65, 8)],
+        k1_per_admission=cfg.encoder_layers)}
+    del params
     timed("parity", parity_phase, fa, cfg)
     rg_cfg = dataclasses.replace(get_config("recurrentgemma-9b"), use_pallas=True)
-    rg_serving = timed("rg_serving", rg_serving_phase, rg_cfg)
+    rg_serving, params = timed("rg_serving", rg_serving_phase, rg_cfg)
+    graphs["recurrentgemma-9b"] = timed("decode_graph recurrentgemma", decode_graph_phase,
+                                        rg_cfg, params, ("contiguous",), RG_MAX_SEQ, (64,))
+    del params
+    torch.cuda.empty_cache()
     timed("rg_decode_parity", rg_decode_parity_phase, k2)
-    paged_serving = timed("paged_serving", paged_serving_phase, get_config("internlm2-20b"))
+    lm_cfg = get_config("internlm2-20b")
+    paged_serving, params = timed("paged_serving", paged_serving_phase, lm_cfg)
+    graphs["internlm2-20b"] = timed("decode_graph internlm2", decode_graph_phase, lm_cfg, params,
+                                    ("paged", "contiguous"), PAGED_MAX_SEQ, (1024,))
+    prefix = rng.integers(0, lm_cfg.vocab_size, SUBSTRATE_PREFIX)
+    substrate["internlm2-20b"] = timed(
+        "serving_substrate internlm2", serving_substrate_phase, lm_cfg, params,
+        max_seq=PAGED_MAX_SEQ, paged=True,
+        prompts=[np.concatenate([prefix, rng.integers(0, lm_cfg.vocab_size, n)])
+                 for n in (17, 40, 64, 100, 128, 160, 200, 256)])
+    del params
+    torch.cuda.empty_cache()
     timed("paged_parity", paged_parity_phase)
-    paged_whisper = timed("paged_whisper", paged_whisper_phase, cfg)
     rwkv_cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=TRAIN_LAYERS,
                                    use_pallas=True)
     train = timed("train", train_phase, rwkv_cfg, k3.rwkv6_scan,
@@ -1717,6 +2040,14 @@ def main() -> int:
                      lambda path: path.rsplit("/", 1)[-1] in ("lam", "w_a", "w_x"))
     if rg_train["launches"]["rglru_scan/tma"] != rg_train["launches"]["rglru_scan"]:
         raise AssertionError(f"K2's launches by path in training: {rg_train['launches']}")
+    if not 0 < graphs["recurrentgemma-9b"]["launches"]["rglru_scan/tma"] \
+            == graphs["recurrentgemma-9b"]["launches"]["rglru_scan"]:
+        raise AssertionError(f"K2 in decode_graph: {graphs['recurrentgemma-9b']['launches']}")
+    whisper_graph = graphs["whisper-large-v3"]
+    if whisper_graph["launches"]["flash_attention"] != cfg.encoder_layers * whisper_graph[
+            "admissions"]:
+        raise AssertionError(f"K1 in decode_graph: {whisper_graph['launches']} over "
+                             f"{whisper_graph['admissions']} admissions")
     timed("train_parity", train_parity_phase, "rwkv6-7b", 2, k3.rwkv6_scan, 2)
     timed("rg_train_parity", train_parity_phase, "recurrentgemma-9b", RG_TRAIN_LAYERS,
           k2.rglru_scan, n_rec)
@@ -1738,12 +2069,31 @@ def main() -> int:
             "peak_mem_gb": rg_train["peak_mem_gb"]},
         "k2": {k: k2_res[k] for k in ("kernel_ms", "bound_ms", "copy_ceiling_ms",
                                       "kernel_ms_prefill", "bound_ms_prefill",
-                                      "copy_ceiling_ms_prefill")}})
+                                      "copy_ceiling_ms_prefill")},
+        "decode_graph": {f"{arch} {layout}": {
+            "step_ms_median": r["step_ms_median"],
+            "window_idle_share": {f"{name} @{p}": w.get("device_idle_share", "not measured")
+                                  for p, ws in r["windows"].items() for name, w in ws.items()},
+            "window_idle_share_unprofiled": {
+                f"{name} @{p}": w.get("device_idle_share_unprofiled", "not measured")
+                for p, ws in r["windows"].items() for name, w in ws.items()},
+            "logits_bit_equal": r["logits"]["bit_equal"], "graphs": r["graphs"],
+            "graph_pool_bytes": r["graph_pool_bytes"]}
+            for arch, g in graphs.items() for layout, r in g["layouts"].items()},
+        "serving_substrate": {arch: {
+            "divergence": [q["divergence"] for q in r["requests"]],
+            "total_ms": [q["total_ms"] for q in r["requests"]],
+            "predicted_total_ms": [q["predicted_total_ms"] for q in r["requests"]]}
+            for arch, r in substrate.items()}})
 
-    k2_launches = rg_serving["k2_launches"] + rg_train["launches"]["rglru_scan"]
+    rg_graph = graphs["recurrentgemma-9b"]["launches"]
+    k2_launches = (rg_serving["k2_launches"] + rg_graph["rglru_scan"]
+                   + rg_train["launches"]["rglru_scan"])
     k1_launches = {"serving": serving["k1_launches"],
+                   "decode_graph": graphs["whisper-large-v3"]["launches"]["flash_attention"],
                    "paged_whisper": paged_whisper["k1_launches_paged"],
-                   "paged_whisper_contiguous": paged_whisper["k1_launches_contiguous"]}
+                   "paged_whisper_contiguous": paged_whisper["k1_launches_contiguous"],
+                   "serving_substrate": substrate["whisper-large-v3"]["k1_launches"]}
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1760,8 +2110,10 @@ def main() -> int:
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru/rglru_scan.py:22",
         "launches": k2_launches, "launches_serving": rg_serving["k2_launches"],
+        "launches_decode_graph": rg_graph["rglru_scan"],
         "launches_train": rg_train["launches"]["rglru_scan"],
         "launches_by_path": {p: rg_serving["launches"][f"rglru_scan/{p}"]
+                             + rg_graph[f"rglru_scan/{p}"]
                              + rg_train["launches"][f"rglru_scan/{p}"]
                              for p in k2.rglru_scan.path_launches},
         "max_abs_err": k2_res["max_abs_err"], "ms": k2_res["kernel_ms"],

@@ -31,6 +31,15 @@ KV storage comes in two layouts:
 
 The engine runs on the card unless it is given ``device="cpu"``.  Per-request
 telemetry (TTFT, decode tokens/s) is stamped through the injected ``clock``.
+
+On the card the continuous path's decode step runs as CUDA graphs — the
+counterpart of the reference's jitted step (``decode_graphs``): one graph
+for the contiguous step, one per page-table width for the paged step, each
+captured on its first use into one shared memory pool.  A graph binds
+buffer addresses, so the step reads its tokens, positions and page table
+from static device buffers filled before each replay, the cache is zeroed
+in place by ``flush`` rather than rebuilt, and ``params`` are bound at
+capture.  The fixed-batch ``generate`` stays eager.
 """
 from __future__ import annotations
 
@@ -54,6 +63,15 @@ from repro_torch.models.common import init_params, resolve_device, tree_leaves
 from repro_torch.serving.cache_utils import (extend_cache, gather_pages,
                                              write_prefill_paged, write_slots)
 from repro_torch.serving.kv_pages import PagePool, PrefixCache
+
+#: cache leaves the decode step reads and rewrites (recurrent carries): the
+#: one part of a step that is not idempotent, so a graph's warm-up restores it
+_CARRIES = ("h", "conv")
+
+#: one side stream per device for every engine's graph warm-ups: cuBLAS keeps
+#: a workspace (32 MiB on Hopper) for each stream it has run on, for the
+#: life of the process
+_WARMUP_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
 @dataclasses.dataclass
@@ -123,9 +141,16 @@ class ServingEngine:
     def __init__(self, cfg, params=None, *, device=None, batch_size: int = 2,
                  max_seq: int = 128, seed: int = 0, paged: bool = False,
                  page_size: int = 16, pool_pages: Optional[int] = None,
-                 prefix_sharing: bool = True, clock: Optional[Clock] = None):
+                 prefix_sharing: bool = True, clock: Optional[Clock] = None,
+                 decode_graphs: Optional[bool] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        on_card = self.device.type == "cuda"
+        if decode_graphs and not on_card:
+            raise ValueError(f"decode_graphs=True needs a CUDA device, not {self.device}")
+        #: the continuous path's decode step runs as CUDA graphs (default: on
+        #: the card); ``False`` keeps it eager, the baseline
+        self.decode_graphs = on_card if decode_graphs is None else bool(decode_graphs)
         self.batch_size = batch_size
         self.max_seq = max_seq
         self.clock = clock if clock is not None else SYSTEM_CLOCK
@@ -152,8 +177,9 @@ class ServingEngine:
                 self._flags = paged_cache_flags(cfg)
                 self._pool = PagePool(self.pool_pages, self.page_size)
                 self._tables = np.zeros((batch_size, self.max_pages), np.int32)
-                #: device copies of the table, by width; dropped on every change
-                self._tables_dev: Dict[int, torch.Tensor] = {}
+                #: bumped on every table change; each width's static device
+                #: table is refreshed in place when its copy is older
+                self._tables_version = 0
                 self._decode = build_decode_step_paged(cfg, self.page_size)
                 if prefix_sharing and prefix_ok:
                     self._prefix = PrefixCache(self._pool)
@@ -172,6 +198,22 @@ class ServingEngine:
         self._slots = [_Slot(i) for i in range(batch_size)]
         self._waiting: Deque[Request] = collections.deque()
         self._cb_cache = None           # shared decode cache, built lazily
+        # the step's static inputs: row 0 the tokens, row 1 the positions,
+        # filled through one pinned host buffer (one copy per step); page
+        # tables by width, each with the table version it holds
+        self._io_host = torch.zeros((2, batch_size), dtype=torch.int64,
+                                    pin_memory=on_card)
+        self._io = torch.zeros((2, batch_size), dtype=torch.int64, device=self.device)
+        self._table_in: Dict[int, tuple] = {}
+        #: decode graphs by key (``None``: contiguous; else the table width),
+        #: each ``(graph, logits, tokens)``; one memory pool for all
+        self._graphs: Dict[Optional[int], tuple] = {}
+        self._graph_pool = None
+        #: capture ms by graph key
+        self.graph_capture_ms: Dict[Optional[int], float] = {}
+        #: logits of the latest continuous decode step (a graph's output
+        #: buffer on a graphed engine: the next replay overwrites it)
+        self.last_logits: Optional[torch.Tensor] = None
         self._lock = threading.RLock()
         self._work = threading.Condition(self._lock)
         #: called with each finished Request (adapter → telemetry/waiters)
@@ -445,7 +487,7 @@ class ServingEngine:
     def _set_table_row(self, index: int, pages: List[int]) -> None:
         self._tables[index, :] = 0
         self._tables[index, :len(pages)] = pages
-        self._tables_dev.clear()
+        self._tables_version += 1
 
     def _prime_slot(self, slot: _Slot, r: Request) -> None:
         """B=1 prefill at the prompt's natural length, written into the
@@ -526,17 +568,18 @@ class ServingEngine:
             live = [s for s in self._slots if s.request is not None]
             if not live:
                 return 0
-            tokens = np.zeros((self.batch_size, 1), np.int32)
-            posv = np.zeros((self.batch_size,), np.int32)
-            for s in self._slots:
-                tokens[s.index, 0] = s.token
-                posv[s.index] = s.pos
-            args = (self._tokens(tokens), self._tokens(posv))
-            if self._pool is not None:
-                args += (self._live_tables(live),)
+            width = self._grow_tables(live) if self._pool is not None else None
             t0 = time.perf_counter()
-            self._cb_cache, logits = self._decode(self.params, self._cb_cache, *args)
-            tok = torch.argmax(logits, dim=-1).cpu().numpy()   # waits for the device
+            inputs = self._step_inputs(width)
+            if self.decode_graphs:
+                graph = self._graphs.get(width) or self._capture(width, inputs)
+                graph[0].replay()
+                logits, tok = graph[1], graph[2]
+            else:
+                self._cb_cache, logits = self._decode(self.params, self._cb_cache, *inputs)
+                tok = torch.argmax(logits, dim=-1)
+            self.last_logits = logits
+            tok = tok.cpu().numpy()                  # the step's one wait for the device
             ms = (time.perf_counter() - t0) * 1e3
             self.metrics["decode_ms"] += ms
             self.metrics["decode_steps"] += 1
@@ -551,9 +594,9 @@ class ServingEngine:
             self.metrics["tokens"] += len(live)
             return len(live)
 
-    def _live_tables(self, live: List[_Slot]) -> torch.Tensor:
+    def _grow_tables(self, live: List[_Slot]) -> int:
         """Grow each live row into the page its write position reaches, and
-        return the device page table cropped to the widest live row."""
+        return the page-table width of this step: the widest live row."""
         width = 0
         for s in live:
             blk = s.pos // self.page_size
@@ -563,22 +606,70 @@ class ServingEngine:
                 # the allocation succeeds
                 s.pages.extend(self._alloc_pages(1))
                 self._tables[s.index, blk] = s.pages[-1]
-                self._tables_dev.clear()
+                self._tables_version += 1
             width = max(width, len(s.pages))
         # attend only over live pages: short requests read a few pages
         # instead of a max_seq-shaped row.  Wide tables round up to powers
         # of two, as the reference's do to bound its compiled variants, so
-        # the gather reads the same columns
+        # the gather reads the same columns (and a few graphs cover them)
         if self.max_pages > 16:
             width = 1 << (width - 1).bit_length()
-        width = min(width, self.max_pages)
-        # tables change only on admission, growth and finish; the steps in
-        # between reuse the uploaded copy for their width
-        tables = self._tables_dev.get(width)
-        if tables is None:
-            tables = self._tokens(self._tables[:, :width])
-            self._tables_dev[width] = tables
-        return tables
+        return min(width, self.max_pages)
+
+    def _step_inputs(self, width: Optional[int]) -> tuple:
+        """Fill the step's static device inputs from the slots and return
+        ``(tokens (B, 1), positions (B,)[, page table (B, width)])``.  Dead
+        rows read token 0 at position 0 through the null page, as the
+        reference's step does.  A width's table is copied only when the
+        host table changed since (admission, growth, finish)."""
+        host = self._io_host.numpy()
+        for s in self._slots:
+            host[0, s.index], host[1, s.index] = s.token, s.pos
+        self._io.copy_(self._io_host, non_blocking=True)
+        inputs = (self._io[0].unsqueeze(1), self._io[1])
+        if width is None:
+            return inputs
+        table, staged, version = self._table_in.get(width, (None, None, -1))
+        if table is None:
+            table = torch.zeros((self.batch_size, width), dtype=torch.int64,
+                                device=self.device)
+            staged = torch.zeros((self.batch_size, width), dtype=torch.int64,
+                                 pin_memory=self._io_host.is_pinned())
+        if version != self._tables_version:
+            staged.numpy()[:] = self._tables[:, :width]
+            table.copy_(staged, non_blocking=True)
+            self._table_in[width] = (table, staged, self._tables_version)
+        return inputs + (table,)
+
+    def _capture(self, key: Optional[int], inputs: tuple) -> tuple:
+        """Capture the decode step for ``key`` (the table width, or ``None``)
+        on the current inputs, with the argmax inside the graph.  One eager
+        warm-up on a side stream comes first; it writes the same K/V the
+        step will, and the recurrent carries it advances are put back.  A
+        failed capture raises: there is no eager fallback."""
+        t0 = time.perf_counter()
+        carries = [(t, t.clone()) for path, t in tree_leaves(self._cb_cache)
+                   if path.rsplit("/", 1)[-1] in _CARRIES]
+        main = torch.cuda.current_stream(self.device)
+        side = _WARMUP_STREAMS.get(self.device)
+        if side is None:
+            side = _WARMUP_STREAMS[self.device] = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._decode(self.params, self._cb_cache, *inputs)
+        main.wait_stream(side)
+        for t, saved in carries:
+            t.copy_(saved)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              capture_error_mode="thread_local"):
+            _, logits = self._decode(self.params, self._cb_cache, *inputs)
+            tokens = torch.argmax(logits, dim=-1)
+        self._graphs[key] = (graph, logits, tokens)
+        self.graph_capture_ms[key] = (time.perf_counter() - t0) * 1e3
+        return self._graphs[key]
 
     def drain(self) -> None:
         """Run ``step`` until the queue and every slot are empty."""
@@ -592,7 +683,7 @@ class ServingEngine:
 
     def flush(self) -> None:
         """Drop all queued and in-flight work: release every reservation and
-        page, clear the prefix cache, reset the decode cache.  Callers
+        page, clear the prefix cache, zero the decode cache.  Callers
         guarantee no invoker is waiting on the flushed requests."""
         with self._work:
             if self._pool is not None:
@@ -606,7 +697,12 @@ class ServingEngine:
                 s.request, s.pos, s.token = None, 0, 0
             if self._prefix is not None:
                 self._prefix.flush()
-            self._cb_cache = None
+            if self._cb_cache is not None:
+                # zeroed in place, not rebuilt: the decode graphs bind its
+                # buffers, and a zeroed cache is a fresh one
+                with torch.inference_mode():
+                    for _, leaf in tree_leaves(self._cb_cache):
+                        leaf.zero_()
             self._work.notify_all()
 
     def wake(self) -> None:

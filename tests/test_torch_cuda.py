@@ -409,3 +409,106 @@ def test_paged_engine_matches_contiguous_on_the_card(card):
     assert paged.pool_stats()["prefix_hit_rate"] > 0
     paged.flush()
     assert paged.audit_pages() == {"pool_pages": 48, "used": 0, "free": 48, "reserved": 0}
+
+
+def _graph_pair(card, arch, batch_size=3, max_seq=64, **kw):
+    """A graphed and an eager engine of a reduced config (fp32) on one set
+    of parameters."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model_specs
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = reduced(get_config(arch))
+    params = init_params(model_specs(cfg), seed=1, device=card)
+    graphed, eager = (ServingEngine(cfg, params, device=card, batch_size=batch_size,
+                                    max_seq=max_seq, decode_graphs=g, **kw)
+                      for g in (True, False))
+    assert graphed.decode_graphs and not eager.decode_graphs
+    return cfg, graphed, eager
+
+
+def _serve(eng, prompts, budgets, tag):
+    from repro_torch.serving import Request
+
+    reqs = [eng.submit(Request(f"{tag}{i}", p, max_new_tokens=m))
+            for i, (p, m) in enumerate(zip(prompts, budgets))]
+    eng.drain()
+    assert all(r.done for r in reqs)
+    return [r.generated for r in reqs]
+
+
+@pytest.mark.parametrize("arch,paged", [("internlm2-20b", False), ("internlm2-20b", True),
+                                        ("whisper-large-v3", False), ("whisper-large-v3", True),
+                                        ("recurrentgemma-9b", False)])
+def test_graphed_engine_matches_eager(card, arch, paged):
+    """The continuous path's decode step as CUDA graphs against the eager
+    step on the same parameters and trace: identical greedy tokens, then
+    again after ``flush`` (the graphs stay bound to the zeroed cache).
+    recurrentgemma-9b holds the warm-up's restore of the recurrent carries."""
+    cfg, graphed, eager = _graph_pair(card, arch, paged=paged, page_size=8)
+    rng = np.random.default_rng(5)
+    for rnd in range(2):
+        prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in (5, 12, 9, 30)]
+        budgets = [7, 4, 11, 6]
+        assert _serve(graphed, prompts, budgets, "g") == _serve(eager, prompts, budgets, "e")
+        graphed.flush()
+        eager.flush()
+    assert graphed.graph_capture_ms and not eager.graph_capture_ms
+    assert (None in graphed.graph_capture_ms) == (graphed._pool is None)
+
+
+def test_graphed_paged_engine_crosses_table_widths(card):
+    """Groups whose widest row needs page tables of 1 to 32 pages (the width
+    rounds to a power of two past 16 pages, and a row grows a page as it
+    decodes across a page boundary): one graph per width, captured on first
+    use, and the eager engine's tokens."""
+    cfg, graphed, eager = _graph_pair(card, "internlm2-20b", max_seq=256, paged=True,
+                                      page_size=8, prefix_sharing=False)
+    rng = np.random.default_rng(6)
+    # widths 1 then 2; 8 then 16; 16 and 32
+    for group, lengths, budgets in (("a", (5,), (12,)), ("b", (40,), (30,)),
+                                    ("c", (100, 200, 3), (20, 40, 9))):
+        prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in lengths]
+        assert (_serve(graphed, prompts, budgets, f"g{group}")
+                == _serve(eager, prompts, budgets, f"e{group}"))
+    assert {1, 2, 8, 16, 32} <= set(graphed.graph_capture_ms)
+    assert graphed.audit_pages()["used"] == 0
+
+
+def test_graphed_engine_serves_from_a_driver_thread(card):
+    """``serve_forever`` on a driver thread (which captures the graph) while
+    four threads submit: each request gets the eager engine's tokens."""
+    import threading
+
+    from repro_torch.serving import Request
+
+    cfg, graphed, eager = _graph_pair(card, "internlm2-20b", batch_size=4)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (4, 9, 13, 6, 21, 8, 5, 11)]
+    budgets = [5, 9, 3, 12, 6, 4, 8, 7]
+    want = _serve(eager, prompts, budgets, "e")
+    done = threading.Semaphore(0)
+    graphed.on_complete = lambda r: done.release()
+    stop = threading.Event()
+    driver = threading.Thread(target=graphed.serve_forever, args=(stop,), daemon=True)
+    driver.start()
+    reqs = [Request(f"t{i}", p, max_new_tokens=m) for i, (p, m) in enumerate(zip(prompts,
+                                                                               budgets))]
+    submitters = [threading.Thread(target=lambda rs: [graphed.submit(r) for r in rs],
+                                   args=(reqs[i::4],)) for i in range(4)]
+    for t in submitters:
+        t.start()
+    for t in submitters:
+        t.join()
+    try:
+        for _ in reqs:
+            assert done.acquire(timeout=120), "the driver did not finish the requests"
+    finally:
+        stop.set()
+        graphed.wake()
+        driver.join(timeout=10)
+    assert not driver.is_alive()
+    assert [r.generated for r in reqs] == want
+    assert list(graphed.graph_capture_ms) == [None]

@@ -177,3 +177,43 @@ def test_engine_needs_a_card_unless_cpu_is_asked():
     # the paged layout runs on the CPU when asked, with the default pool
     eng = ServingEngine(cfg, device="cpu", paged=True)
     assert eng.pool_stats()["pool_pages"] == eng.batch_size * -(-eng.max_seq // 16)
+
+
+def test_decode_graphs_need_a_card():
+    cfg = reduced(get_config("internlm2-20b"))
+    with pytest.raises(ValueError, match="decode_graphs=True needs a CUDA device"):
+        ServingEngine(cfg, device="cpu", decode_graphs=True)
+    assert not ServingEngine(cfg, device="cpu").decode_graphs
+    assert not ServingEngine(cfg, device="cpu", decode_graphs=False).decode_graphs
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_flushed_engine_serves_as_a_fresh_one(pair, paged):
+    """``flush`` zeroes the decode cache in place (a graphed engine's graphs
+    bind its buffers): an engine flushed mid-trace serves the same tokens
+    as a fresh engine on the same parameters."""
+    _, port_engine, vocab = pair
+    prompts = _prompts(vocab, [5, 9, 5, 7], seed=4)
+    budgets = [6, 3, 8, 5]
+
+    def serve(eng):
+        reqs = [eng.submit(Request(f"f{i}", p, max_new_tokens=m))
+                for i, (p, m) in enumerate(zip(prompts, budgets))]
+        eng.drain()
+        return [r.generated for r in reqs]
+
+    want = serve(port_engine(2, paged=paged))
+    eng = port_engine(2, paged=paged)
+    for i, p in enumerate(prompts[:3]):
+        eng.submit(Request(f"x{i}", p[::-1].copy(), max_new_tokens=9))
+    for _ in range(4):
+        eng.step()
+    cache = eng._cb_cache
+    eng.flush()
+    assert eng._cb_cache is cache and eng.live_slots() == 0 and eng.backlog_tokens() == 0
+    assert all(not leaf.any() for leaf in _leaves(cache))
+    assert serve(eng) == want
+
+
+def _leaves(tree):
+    return [x for v in tree.values() for x in (_leaves(v) if isinstance(v, dict) else [v])]
