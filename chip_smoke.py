@@ -55,12 +55,15 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    448, page 16), 8 requests against the contiguous engine: K1 must launch
    32 times per admission; no prefix cache.
 8. serving_substrate whisper — the port's ``LmServingAdapter`` at full size
-   on the same parameters: ``prepare`` (its calibration request captures
+   on the same parameters: ``prepare`` (its two calibration requests, 8
+   tokens and a quarter of ``max_seq``, fit the prefill price and capture
    the first graph), then ``invoke`` from 8 threads at once with duck-typed
    sessions; each request's measured time beside the surrogate's
    prediction and their divergence; a 1 ms budget refused ``DEADLINE`` with
    no device work, a 60 s budget served; ``snapshot()`` and the twin's
-   ``simulate``.  K1 must launch 32 times in every admission.
+   ``simulate``.  K1 must launch 32 times in every admission.  The closed
+   adapter, once dropped, must leave the card's memory within 64 MiB of
+   where it started, with no cycle collection.
 9. parity — the full-width fp32 encoder, layer by layer, through the kernel
    and through the plain path from the same input; the largest difference
    must be <= 1e-3 (see ``parity_phase`` for why per layer).
@@ -97,7 +100,8 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
 14. decode_graph internlm2 — as phase 6 on those parameters, paged (one
     graph per table width) and contiguous.
 15. serving_substrate internlm2 — as phase 8 on those parameters, paged,
-    with 8 prompts sharing a 512-token prefix (prefix hits).
+    with 8 prompts sharing a 512-token prefix (prefix hits); every
+    request's divergence must be within the surrogate's tolerance (0.5).
 16. paged parity — internlm2-20b at full width in fp32 (TF32 off) at depth
     4: decode through the page table and a prefix-hit prefill, layer by
     layer from the same input, within 1e-4 of the contiguous layer's
@@ -109,7 +113,9 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
     after drain.
 17. train — rwkv6-7b at full width (d_model 4096, 64 heads of 64, d_ff
     14336, vocab 65536) cut to 4 of 32 layers, bf16 params, fp32 moments,
-    ``use_pallas=True``: 3 steps of the port's launcher loop at global
+    ``use_pallas=True``, ``remat_policy="nothing"`` (as before the port had
+    remat, so their series stay comparable): 3 steps of the port's
+    launcher loop at global
     batch 8 x 4096 tokens in 4 microbatches.  K3 must launch once per layer
     and microbatch (48 times; the backward recomputes through the plain
     chunked version), loss and grad norm must be finite and every layer's
@@ -124,7 +130,29 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
 19. train-parity — rwkv6-7b at full width in fp32, depth 2, B=1, S=1024:
     the loss and its grads through K3 against the plain path, within 5e-3
     on the loss and 1e-3 relative on the grad norm.  Then the same for
-    recurrentgemma-9b at depth 3 through K2.
+    recurrentgemma-9b at depth 3 through K2.  Both at
+    ``remat_policy="nothing"``.
+20. train_substrate — the port's ``GpuNodeSubstrate`` driven directly
+    through duck-typed sessions: rwkv6-7b at full width cut to 2 of 32
+    layers (944 M parameters), bf16 params, fp32 moments, ``use_pallas``,
+    ``remat_policy`` at its default (``"full"``), 8 x 1024 tokens in 4
+    microbatches.  ``prepare`` (the warm-up step), three quanta of 2 steps
+    (only the first saves a checkpoint, 11.3 GB), the twin's predicted step
+    beside the measured one and the 6·N·D/peak floor, a straggler stalled
+    2.5 median steps that must read DEGRADED in its telemetry and
+    ``snapshot()``, ``reset("restore_checkpoint")`` back to the saved step
+    with the stall cleared, the substrate dropped (memory back within 64
+    MiB, no cycle collection), and a second substrate on the checkpoint
+    directory resuming the saved step.  K3 must launch twice per layer and
+    microbatch in every step (the forward and its recompute), the
+    warm-ups' included; losses and grad norms finite.
+21. dense_train — qwen2.5-32b at full width (d_model 5120, 40 heads of 128,
+    8 kv heads, d_ff 27648, vocab 152064, qkv bias) cut to 2 of 64 layers
+    (2.53 B parameters), bf16 params, fp32 moments, ``use_pallas``: 2 steps
+    of 8 x 4096 tokens in 4 microbatches under ``remat_policy="nothing"``,
+    then 2 under ``"full"``; step ms, tokens/s and peak GB of each.  K1
+    must launch once per layer and microbatch, twice under ``"full"``;
+    every layer's q/k/v bias must receive a gradient.
 
 Output: the card (``nvidia-smi`` name and power limit), one JSON line per
 phase, the ``{"kernels": [...]}`` line, and as the last line
@@ -133,7 +161,6 @@ phase, the ``{"kernels": [...]}`` line, and as the last line
 from __future__ import annotations
 
 import dataclasses
-import gc
 import json
 import math
 import re
@@ -1546,7 +1573,7 @@ SUBSTRATE_PREFIX = 512
 
 
 def serving_substrate_phase(cfg, params, *, max_seq: int, paged: bool, prompts,
-                            k1_per_admission: int = 0) -> dict:
+                            k1_per_admission: int = 0, hold_divergence: bool = False) -> dict:
     """The port's ``LmServingAdapter`` at full size on ``params``, driven as
     a control plane drives it: ``prepare`` (the calibration request, where
     the first decode graph is captured), then ``invoke`` with duck-typed
@@ -1558,7 +1585,9 @@ def serving_substrate_phase(cfg, params, *, max_seq: int, paged: bool, prompts,
     metrics and kernel launches unchanged) and a generous one (60 s)
     served; ``snapshot()`` and the twin's ``simulate`` are reported.  Where
     ``k1_per_admission`` is set (whisper), K1 must launch that many times
-    in every admission (the calibration's included)."""
+    in every admission (the calibrations' included).  With
+    ``hold_divergence`` every request's divergence must be within the
+    surrogate's own tolerance (ROADMAP C5)."""
     import types
 
     from repro_torch.core.errors import AdmissionRefused, ErrorCode
@@ -1617,7 +1646,11 @@ def serving_substrate_phase(cfg, params, *, max_seq: int, paged: bool, prompts,
     finally:
         adapter.close()
     launches = read_counts()
-    admissions = len(prompts) + 2                 # the calibration and the generous request
+    admissions = len(prompts) + 3                 # two calibration prefills, the generous request
+    worst = max(q["divergence"] for q in requests)
+    if hold_divergence and worst > twin.surrogate.tolerance:
+        raise AssertionError(f"serving_substrate {cfg.name}: the twin diverged {worst:.3f} from "
+                             f"a served request, past its tolerance {twin.surrogate.tolerance}")
     if k1_per_admission and launches["flash_attention"] != k1_per_admission * admissions:
         raise AssertionError(f"serving_substrate {cfg.name}: K1 launched "
                              f"{launches['flash_attention']} times over {admissions} admissions")
@@ -1632,10 +1665,9 @@ def serving_substrate_phase(cfg, params, *, max_seq: int, paged: bool, prompts,
                k1_launches=launches["flash_attention"], admissions=admissions,
                pool_stats=engine.pool_stats())
     emit({"phase": f"serving_substrate {cfg.name}", **res})
-    # the adapter and its engine refer to each other (``on_complete``): only
-    # the cycle collector frees the engine's cache and the parameters
+    # a closed adapter lets go of its engine: dropping the last references
+    # frees the engine's cache and graphs at once, with no cycle collection
     del engine, adapter
-    gc.collect()
     torch.cuda.empty_cache()
     # a leaked engine holds GBs (its cache, and the parameters through it)
     if torch.cuda.memory_allocated() > allocated + (64 << 20):
@@ -1710,12 +1742,14 @@ def parity_phase(fa, cfg) -> dict:
     return res
 
 
-def train_phase(cfg, kernel, expected: int, needs_grad) -> dict:
-    """``cfg`` at full width through the port's launcher loop: 3 steps of
-    8 x 4096 tokens in ``cfg.microbatches`` microbatches.  ``kernel`` (the
+def train_phase(cfg, kernel, expected: int, needs_grad, steps: int = TRAIN_STEPS,
+                name: str = "train", profile: bool = True) -> dict:
+    """``cfg`` at full width through the port's launcher loop: ``steps`` steps
+    of 8 x 4096 tokens in ``cfg.microbatches`` microbatches.  ``kernel`` (the
     wrapper with the path's launch count) must launch ``expected`` times, and
     every stacked parameter whose path ``needs_grad`` accepts must have
-    received a gradient in every layer."""
+    received a gradient in every layer.  ``profile`` adds one profiled step
+    of a single microbatch."""
     from repro_torch.launch.train import train_loop
     from repro_torch.models import count_params
     from repro_torch.models.common import tree_leaves
@@ -1724,7 +1758,7 @@ def train_phase(cfg, kernel, expected: int, needs_grad) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    state, records = train_loop(cfg, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+    state, records = train_loop(cfg, steps=steps, batch_size=TRAIN_BATCH,
                                 seq=TRAIN_SEQ, device="cuda", log=lambda s: None)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -1734,7 +1768,7 @@ def train_phase(cfg, kernel, expected: int, needs_grad) -> dict:
         if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
             raise AssertionError(f"train step {r['step']}: loss {r['loss']}, "
                                  f"grad norm {r['grad_norm']}")
-    if len(records) != TRAIN_STEPS or launches[kernel.__name__] != expected:
+    if len(records) != steps or launches[kernel.__name__] != expected:
         raise AssertionError(f"{kernel.__name__} launched {launches[kernel.__name__]} times in "
                              f"{len(records)} steps, expected {expected}")
     # a parameter whose grad was ever non-zero has a non-zero second moment;
@@ -1750,10 +1784,12 @@ def train_phase(cfg, kernel, expected: int, needs_grad) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     res = dict(arch=cfg.name, layers=cfg.num_layers, params=count_params(cfg),
                batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=cfg.microbatches,
-               launches=launches, grads_checked=len(checked), wall_s=wall_s, steps=records,
-               peak_mem_gb=peak_gb, **memory_breakdown(cfg, state))
-    emit({"phase": f"train {cfg.name}", **res})
-    emit({"phase": f"train_profile {cfg.name}", **profile_train_step(cfg, state)})
+               remat_policy=cfg.remat_policy, launches=launches, grads_checked=len(checked),
+               wall_s=wall_s, steps=records, peak_mem_gb=peak_gb,
+               **memory_breakdown(cfg, state))
+    emit({"phase": f"{name} {cfg.name}", **res})
+    if profile:
+        emit({"phase": f"train_profile {cfg.name}", **profile_train_step(cfg, state)})
     del state
     torch.cuda.empty_cache()
     return res
@@ -1847,7 +1883,7 @@ def train_parity_phase(arch: str, layers: int, kernel, expected: int) -> dict:
     from repro_torch.training.train_step import _grad_fn
 
     cfg = dataclasses.replace(get_config(arch), num_layers=layers, param_dtype="float32",
-                              compute_dtype="float32", use_pallas=False)
+                              compute_dtype="float32", use_pallas=False, remat_policy="nothing")
     params = init_params(model_specs(cfg), seed=1, device="cuda")
     batch = {k: torch.from_numpy(v).to("cuda", torch.long) for k, v in
              SyntheticTokenDataset(cfg.vocab_size, 1024, 1).batch_at(0).items()}
@@ -1883,6 +1919,181 @@ def train_parity_phase(arch: str, layers: int, kernel, expected: int) -> dict:
     del params
     torch.cuda.empty_cache()
     return res
+
+
+#: train_substrate: rwkv6-7b at full width, cut to 2 of 32 layers
+SUBSTRATE_LAYERS, SUBSTRATE_BATCH, SUBSTRATE_SEQ, SUBSTRATE_QUANTUM = 2, 8, 1024, 2
+#: the straggler's stall, in median steps: past STRAGGLER_FACTOR (2) with room
+STRAGGLER_STALL = 2.5
+
+
+def train_substrate_phase(k3) -> dict:
+    """The port's ``GpuNodeSubstrate`` driven as a control plane drives it
+    (duck-typed sessions; no plane on the card): rwkv6-7b at full width cut
+    to ``SUBSTRATE_LAYERS`` layers, bf16 params, fp32 moments,
+    ``use_pallas=True``, ``remat_policy`` at its default (``"full"``), batch 8
+    x 1024 tokens in 4 microbatches.  ``prepare`` (the warm-up step), three
+    quanta of ``SUBSTRATE_QUANTUM`` steps (only the first saves a
+    checkpoint), the twin's predicted step beside the measured one and the
+    6·N·D/peak floor, a straggler that must read DEGRADED in the quantum's
+    telemetry and in ``snapshot()``, ``reset("restore_checkpoint")`` back to
+    the saved step with the slowdown cleared, the substrate dropped (memory
+    back within 64 MiB with no cycle collection), and a second substrate on
+    the same directory resuming from the saved step.  K3 must launch twice
+    per layer and microbatch in every step (the forward and its recompute),
+    the warm-up's included."""
+    import shutil
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params
+    from repro_torch.roofline.analysis import HW, model_flops
+    from repro_torch.substrates import GpuNodeSubstrate
+
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=SUBSTRATE_LAYERS,
+                              use_pallas=True)
+    assert cfg.remat_policy == "full" and cfg.moment_dtype == "float32"
+    ckpt_dir = ROOT / "build" / "train_substrate_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    per_step = SUBSTRATE_LAYERS * cfg.microbatches * 2
+
+    def session(steps, **payload):
+        return types.SimpleNamespace(task=types.SimpleNamespace(
+            task_id="train", payload=dict(steps=steps, **payload)))
+
+    def new_substrate(recipe):
+        return GpuNodeSubstrate(cfg.name, cfg=cfg, device="cuda", recipe=recipe,
+                                steps_per_invoke=SUBSTRATE_QUANTUM, batch=SUBSTRATE_BATCH,
+                                seq=SUBSTRATE_SEQ, ckpt_dir=str(ckpt_dir))
+
+    def launched(fn, steps, what):
+        before = k3.launches
+        t0 = time.perf_counter()
+        out = fn()
+        seconds = time.perf_counter() - t0
+        if k3.launches - before != per_step * steps:
+            raise AssertionError(f"train_substrate {what}: K3 launched {k3.launches - before} "
+                                 f"times in {steps} steps, expected {per_step * steps}")
+        return out, seconds
+
+    def quantum(sub, what, **payload):
+        raw, wall_s = launched(lambda: sub.invoke(session(SUBSTRATE_QUANTUM, **payload)),
+                               SUBSTRATE_QUANTUM, what)
+        tele = raw["telemetry"]
+        if not (math.isfinite(tele["loss"]) and math.isfinite(tele["grad_norm"])):
+            raise AssertionError(f"train_substrate {what}: {tele}")
+        return raw, dict(what=what, step=raw["output"]["step"], wall_s=wall_s,
+                         backend_ms=raw["backend_ms"],
+                         **{k: tele[k] for k in ("loss", "grad_norm", "step_ms", "tokens_per_s",
+                                                 "drift_score", "health_status")})
+
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sub = new_substrate("baseline")
+    _, prepare_s = launched(lambda: sub.prepare(None), 1, "prepare")
+    if sub._step != 0:
+        raise AssertionError(f"train_substrate: the warm-up counted as step {sub._step}")
+    twin = sub.make_twin()
+    quanta = []
+    for q in range(3):
+        if q == 2:
+            predicted = twin.surrogate.simulate(session(SUBSTRATE_QUANTUM).task)
+        raw, rec = quantum(sub, f"quantum {q}", checkpoint=q == 0)
+        if q == 0:
+            rec["checkpoint_s"] = rec["wall_s"] - rec["backend_ms"] / 1e3
+        twin.surrogate.observe(None, raw)
+        quanta.append(rec)
+    saved = sub._ckpt.list_steps()
+    if saved != [SUBSTRATE_QUANTUM]:
+        raise AssertionError(f"train_substrate: checkpoints {saved}")
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.glob("ckpt-*.npz"))
+    n_params = count_params(cfg)
+    floor_ms = model_flops(n_params, SUBSTRATE_BATCH * SUBSTRATE_SEQ) / HW.peak_flops * 1e3
+    twin_check = dict(predicted_step_ms=predicted["telemetry"]["step_ms"],
+                      measured_step_ms=quanta[2]["step_ms"], floor_6ND_ms=floor_ms,
+                      divergence=twin.surrogate.divergence(raw["output"], predicted["output"]))
+
+    median_ms = float(np.median(sub._step_times))
+    sub.inject_straggler(STRAGGLER_STALL * median_ms / 1e3)
+    _, slow = quantum(sub, "straggler", checkpoint=False)
+    snap_slow = sub.snapshot().to_dict()
+    if slow["health_status"] != "degraded" or snap_slow["health_status"] != "degraded":
+        raise AssertionError(f"train_substrate: a {STRAGGLER_STALL}x stall read "
+                             f"{slow['health_status']} / {snap_slow['health_status']}")
+    t0 = time.perf_counter()
+    sub.reset("restore_checkpoint")
+    restore_s = time.perf_counter() - t0
+    if sub._step != SUBSTRATE_QUANTUM or sub._injected_slowdown:
+        raise AssertionError(f"train_substrate: reset left step {sub._step}, "
+                             f"slowdown {sub._injected_slowdown}")
+    _, after = quantum(sub, "after reset", checkpoint=False)
+    if after["health_status"] != "healthy" or after["step"] != 2 * SUBSTRATE_QUANTUM:
+        raise AssertionError(f"train_substrate: after the reset {after}")
+    descriptor = sub.descriptor().to_dict()
+    warmup_ms = sub._compile_ms
+    del sub, twin
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - allocated
+    if left > 64 << 20:
+        raise AssertionError(f"train_substrate: {left} bytes still allocated after the "
+                             f"substrate was dropped")
+
+    sub = new_substrate("tp_only")
+    launched(lambda: sub.prepare(None), 1, "second prepare")
+    _, resumed = quantum(sub, "resumed", resume=True, checkpoint=False)
+    resumed["restore_s"] = resumed["wall_s"] - resumed["backend_ms"] / 1e3
+    if resumed["step"] != 2 * SUBSTRATE_QUANTUM:
+        raise AssertionError(f"train_substrate: the second substrate resumed to {resumed}")
+    if abs(resumed["loss"] - after["loss"]) > 5e-3:
+        raise AssertionError(f"train_substrate: resumed loss {resumed['loss']} against "
+                             f"{after['loss']} from the same checkpoint")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del sub
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    steps = 2 + 6 * SUBSTRATE_QUANTUM                   # two warm-ups, six quanta
+    if k3.launches != per_step * steps:
+        raise AssertionError(f"train_substrate: K3 launched {k3.launches} times in {steps} "
+                             f"steps")
+    res = dict(arch=cfg.name, layers=cfg.num_layers, params=n_params, batch=SUBSTRATE_BATCH,
+               seq=SUBSTRATE_SEQ, microbatches=cfg.microbatches, remat_policy=cfg.remat_policy,
+               resource_id=descriptor["resource_id"], prepare_s=prepare_s, warmup_ms=warmup_ms,
+               quanta=quanta + [slow, after, resumed], checkpoint_bytes=ckpt_bytes,
+               checkpoint_save_s=quanta[0]["checkpoint_s"], restore_s=restore_s,
+               reset_cost_ms=descriptor["capability"]["lifecycle"]["reset_cost_ms"],
+               twin=twin_check, straggler_stall_ms=STRAGGLER_STALL * median_ms,
+               median_step_ms=median_ms, snapshot_straggler=snap_slow,
+               memory_left_bytes=left, peak_mem_gb=peak_gb, k3_per_step=per_step,
+               k3_launches=k3.launches)
+    emit({"phase": "train_substrate", **res})
+    return res
+
+
+#: dense_train: qwen2.5-32b at full width, cut to 2 of 64 layers; steps per policy
+DENSE_LAYERS, DENSE_STEPS = 2, 2
+
+
+def dense_train_phase(k1) -> dict:
+    """qwen2.5-32b at full width (qkv bias) cut to ``DENSE_LAYERS`` layers,
+    bf16 params, fp32 moments, ``use_pallas=True``: ``DENSE_STEPS`` steps of 8
+    x 4096 tokens in 4 microbatches under ``remat_policy="nothing"``, then
+    under ``"full"``.  K1 must launch once per layer and microbatch, twice
+    under ``"full"`` (the backward recomputes each block's forward); every
+    layer's q/k/v bias must receive a gradient."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("qwen2.5-32b"), num_layers=DENSE_LAYERS,
+                              use_pallas=True)
+    assert cfg.qkv_bias and cfg.microbatches == 4
+    runs = {}
+    for policy, recompute in (("nothing", 1), ("full", 2)):
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        runs[policy] = train_phase(
+            c, k1, DENSE_LAYERS * c.microbatches * DENSE_STEPS * recompute,
+            lambda path: path.rsplit("/", 1)[-1] in ("bq", "bk", "bv"),
+            steps=DENSE_STEPS, name=f"dense_train {policy}", profile=False)
+    return runs
 
 
 def profile_window(eng, cfg, prompt_len: int = 16) -> dict:
@@ -2024,16 +2235,18 @@ def main() -> int:
         "serving_substrate internlm2", serving_substrate_phase, lm_cfg, params,
         max_seq=PAGED_MAX_SEQ, paged=True,
         prompts=[np.concatenate([prefix, rng.integers(0, lm_cfg.vocab_size, n)])
-                 for n in (17, 40, 64, 100, 128, 160, 200, 256)])
+                 for n in (17, 40, 64, 100, 128, 160, 200, 256)], hold_divergence=True)
     del params
     torch.cuda.empty_cache()
     timed("paged_parity", paged_parity_phase)
+    # the train phases keep every activation (no recompute), as they did before
+    # the port had remat, so their launch counts and series stay comparable
     rwkv_cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=TRAIN_LAYERS,
-                                   use_pallas=True)
+                                   use_pallas=True, remat_policy="nothing")
     train = timed("train", train_phase, rwkv_cfg, k3.rwkv6_scan,
                   TRAIN_LAYERS * rwkv_cfg.microbatches * TRAIN_STEPS,
                   lambda path: "/mixer/" in path)
-    rg_train_cfg = dataclasses.replace(rg_cfg, num_layers=RG_TRAIN_LAYERS)
+    rg_train_cfg = dataclasses.replace(rg_cfg, num_layers=RG_TRAIN_LAYERS, remat_policy="nothing")
     n_rec = sum(kind == "recurrent" for kind in rg_train_cfg.layer_kinds())
     rg_train = timed("rg_train", train_phase, rg_train_cfg, k2.rglru_scan,
                      n_rec * rg_train_cfg.microbatches * TRAIN_STEPS,
@@ -2051,6 +2264,8 @@ def main() -> int:
     timed("train_parity", train_parity_phase, "rwkv6-7b", 2, k3.rwkv6_scan, 2)
     timed("rg_train_parity", train_parity_phase, "recurrentgemma-9b", RG_TRAIN_LAYERS,
           k2.rglru_scan, n_rec)
+    train_substrate = timed("train_substrate", train_substrate_phase, k3.rwkv6_scan)
+    dense = timed("dense_train", dense_train_phase, fa.flash_attention)
     emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - t0})
     paged_runs = paged_serving["runs"]
     emit({"phase": "summary", "internlm2-20b serving": {
@@ -2067,6 +2282,17 @@ def main() -> int:
             "step_ms": [r["step_ms"] for r in rg_train["steps"]],
             "tokens_per_s": [r["tokens_per_s"] for r in rg_train["steps"]],
             "peak_mem_gb": rg_train["peak_mem_gb"]},
+        "rwkv6-7b train_substrate": {
+            "step_ms": [q["step_ms"] for q in train_substrate["quanta"]],
+            "health": [q["health_status"] for q in train_substrate["quanta"]],
+            **{k: train_substrate[k] for k in ("warmup_ms", "checkpoint_bytes",
+                                                "checkpoint_save_s", "restore_s", "twin",
+                                                "peak_mem_gb")}},
+        "qwen2.5-32b dense_train": {policy: {
+            "step_ms": [r["step_ms"] for r in run["steps"]],
+            "tokens_per_s": [r["tokens_per_s"] for r in run["steps"]],
+            "peak_mem_gb": run["peak_mem_gb"], "peak_fwd_bwd_gb": run["peak_fwd_bwd_gb"]}
+            for policy, run in dense.items()},
         "k2": {k: k2_res[k] for k in ("kernel_ms", "bound_ms", "copy_ceiling_ms",
                                       "kernel_ms_prefill", "bound_ms_prefill",
                                       "copy_ceiling_ms_prefill")},
@@ -2093,7 +2319,9 @@ def main() -> int:
                    "decode_graph": graphs["whisper-large-v3"]["launches"]["flash_attention"],
                    "paged_whisper": paged_whisper["k1_launches_paged"],
                    "paged_whisper_contiguous": paged_whisper["k1_launches_contiguous"],
-                   "serving_substrate": substrate["whisper-large-v3"]["k1_launches"]}
+                   "serving_substrate": substrate["whisper-large-v3"]["k1_launches"],
+                   **{f"dense_train {policy}": run["launches"]["flash_attention"]
+                      for policy, run in dense.items()}}
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -2132,7 +2360,10 @@ def main() -> int:
         "name": "rwkv6_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6/rwkv6_scan.py:24",
-        "launches": train["launches"]["rwkv6_scan"], "max_abs_err": k3_res["max_abs_err"],
+        "launches": train["launches"]["rwkv6_scan"] + train_substrate["k3_launches"],
+        "launches_by_phase": {"train": train["launches"]["rwkv6_scan"],
+                              "train_substrate": train_substrate["k3_launches"]},
+        "max_abs_err": k3_res["max_abs_err"],
         "ms": k3_res["kernel_ms"], "ms_events": k3_res["kernel_events_ms"],
         "plain_ms": k3_res["plain_chunked_ms"],
         "plain_sequential_ms": k3_res["plain_sequential_ms"],

@@ -1,1 +1,1 @@
-"""The control-plane pieces the port's serving engine needs (copied, not imported)."""
+"""The control-plane pieces the port's engine, substrates and fleet runner need (copied, not imported)."""

@@ -11,11 +11,14 @@ be JAX's: ``jax.random`` is not replayable in torch).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -164,3 +167,45 @@ ACTIVATIONS: Dict[str, Callable] = {
     "squared_relu": lambda x: torch.square(F.relu(x)),
     "relu": F.relu,
 }
+
+
+#: the products whose outputs the selective policies keep for backward:
+#: every matmul ("dots", JAX's ``checkpoint_dots``) or those without a batch
+#: dimension ("dots_no_batch", ``checkpoint_dots_with_no_batch_dims``)
+_SAVED_PRODUCTS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default),
+    "dots_no_batch": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+}
+
+
+def remat_policy(name: str):
+    """Config remat names (the reference's) -> what to wrap a block with:
+    ``None`` for no recompute, else the ``context_fn`` of
+    ``torch.utils.checkpoint.checkpoint`` (``"full"`` recomputes everything,
+    the selective ones save their products' outputs)."""
+    if name == "nothing":
+        return None
+    if name == "full":
+        return noop_context_fn
+    if name in _SAVED_PRODUCTS:
+        saved = _SAVED_PRODUCTS[name]
+
+        def policy(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op in saved
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+        return functools.partial(create_selective_checkpoint_contexts, policy)
+    if name == "moe":
+        raise NotImplementedError("remat policy 'moe' saves the MoE exchange buffers, and "
+                                  "MoE is not ported: ROADMAP A8.3")
+    raise ValueError(f"unknown remat policy {name!r}")
+
+
+def maybe_remat(fn, policy_name: str):
+    """``fn`` wrapped so that its backward recomputes it under the named
+    policy (non-reentrant ``torch.utils.checkpoint``); ``"nothing"`` returns
+    ``fn`` itself."""
+    context_fn = remat_policy(policy_name)
+    if context_fn is None:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=context_fn)

@@ -49,8 +49,20 @@ def model_specs(cfg) -> dict:
     return s
 
 
-def count_params(cfg) -> int:
-    return sum(math.prod(spec.shape) for _, spec in cm.tree_leaves(model_specs(cfg)))
+def count_params(cfg, active_only: bool = False, include_embed: bool = True) -> int:
+    """Analytic N, by the reference's rules: ``include_embed=False`` leaves
+    out every leaf with a vocabulary axis; ``active_only`` counts an expert
+    leaf at ``top_k / num_experts`` (no ported arch has experts yet)."""
+    total = 0
+    m = cfg.moe
+    for _, spec in cm.tree_leaves(model_specs(cfg)):
+        n = math.prod(spec.shape)
+        if not include_embed and "vocab" in spec.axes:
+            continue
+        if active_only and m is not None and "expert" in spec.axes:
+            n = int(n * m.top_k / m.num_experts)
+        total += n
+    return total
 
 
 def _sinusoid(positions, d_model: int, device=None):

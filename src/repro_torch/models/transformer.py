@@ -22,9 +22,11 @@ and the recurrentgemma hybrid's ``recurrent`` (RG-LRU) and ``local_attn``
 and rwkv serving, raises ``NotImplementedError`` naming its ROADMAP item.
 The MoE auxiliary loss the reference threads through is therefore always
 zero here and is not carried.
-The reference's ``cfg.remat_policy`` (a ``jax.checkpoint`` around each
-repeated block) is not ported: eager autograd keeps every layer's
-activations (ROADMAP A3).
+``train`` wraps each repetition of the cycle in ``cfg.remat_policy`` as
+the reference does (``common.maybe_remat``: ``"full"`` recomputes the block
+in backward, ``"dots"`` / ``"dots_no_batch"`` keep its products' outputs,
+``"nothing"`` keeps every activation), when autograd records; ``prefill``
+and ``decode`` run without autograd in the port, so they are not wrapped.
 """
 from __future__ import annotations
 
@@ -348,8 +350,23 @@ class Stack:
 
     # -- forward ------------------------------------------------------------
     def train(self, p: dict, x, positions, ctx=None):
-        for _, _, _, d, lp in self._layers(p):
-            x = apply_layer_train(self.cfg, d, lp, x, positions, ctx, self.bidirectional)
+        cfg = self.cfg
+        for i, d in enumerate(self.prefix):
+            x = apply_layer_train(cfg, d, p["prefix"][str(i)], x, positions, ctx,
+                                  self.bidirectional)
+        if self.reps:
+            def body(x, bp):
+                for i, d in enumerate(self.cycle):
+                    x = apply_layer_train(cfg, d, bp[str(i)], x, positions, ctx,
+                                          self.bidirectional)
+                return x
+            if torch.is_grad_enabled():
+                body = cm.maybe_remat(body, cfg.remat_policy)
+            for r in range(self.reps):
+                x = body(x, _at(p["blocks"], r))
+        for i, d in enumerate(self.suffix):
+            x = apply_layer_train(cfg, d, p["suffix"][str(i)], x, positions, ctx,
+                                  self.bidirectional)
         return x
 
     def _require_serving(self) -> None:

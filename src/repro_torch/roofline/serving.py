@@ -16,7 +16,7 @@ Predicted completion for a new arrival =
 
 scaled by a safety factor.
 
-Two differences from the reference:
+Three differences from the reference:
 
 - the cache's bytes are counted from the port's ``decode_cache`` /
   ``decode_cache_paged`` built on the ``meta`` device: shapes and dtypes,
@@ -26,14 +26,26 @@ Two differences from the reference:
   (``n · max(2N/peak, weight_bytes/hbm_bw)``); a prefill is one forward over
   n tokens, whose least time is ``max(2N·n/peak, weight_bytes/hbm_bw)``.
   ``prefill_lb_ms_per_token`` keeps its key and holds the per-token compute
-  term; ``prefill_weight_read_ms`` is the one weight read.
+  term; ``prefill_weight_read_ms`` is the one weight read;
+- a prefill is priced as a fixed part plus a per-token part, fitted to the
+  observed ``(tokens, ms)`` pairs, not as n times the median ms per token.
+  The reference's median, learnt from a short calibration prefill that is
+  almost all fixed cost (the weight read, the host's launches), prices a
+  long prompt several times too high.  The fit is Theil-Sen (the median of
+  the pairwise slopes, then the median intercept), as robust to a
+  capture-time outlier as the reference's median; the slope is held at or
+  above ``prefill_lb_ms_per_token`` and the intercept at or above 0.  With
+  fewer than two distinct lengths observed, the slope is that floor and the
+  intercept takes the rest.  Where every observation has one per-token rate
+  the fit is that rate with no fixed part, and the two packages agree.
+  ``snapshot()`` adds ``prefill_fixed_ms`` and ``prefill_ms_per_token``.
 """
 from __future__ import annotations
 
 import collections
 import statistics
 import threading
-from typing import Deque, Dict, Optional
+from typing import Deque, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -121,7 +133,9 @@ class ServingCostModel:
         self.prefill_weight_read_ms = roofline_terms(0.0, pbytes, 0.0, hw)["step_time_lb_s"] * 1e3
         self._lock = threading.Lock()
         self._step_ms: Deque[float] = collections.deque(maxlen=self.WINDOW)
-        self._prefill_ms_tok: Deque[float] = collections.deque(maxlen=self.WINDOW)
+        self._prefills: Deque[Tuple[int, float]] = collections.deque(maxlen=self.WINDOW)
+        # the fitted prefill price: fixed ms, ms per token (None: nothing observed)
+        self._prefill_fit: Optional[Tuple[float, float]] = None
 
     # -- measurement feed (engine on_step_ms / on_prefill_ms hooks) -----------
     def observe_step(self, ms: float) -> None:
@@ -131,7 +145,21 @@ class ServingCostModel:
     def observe_prefill(self, prompt_len: int, ms: float) -> None:
         if prompt_len > 0:
             with self._lock:
-                self._prefill_ms_tok.append(ms / prompt_len)
+                self._prefills.append((prompt_len, ms))
+                self._prefill_fit = self._fit_prefill()
+
+    def _fit_prefill(self) -> Tuple[float, float]:
+        """-> (fixed ms, ms per token) of the observed prefills: Theil-Sen
+        with the slope floored at the per-token compute bound and the
+        intercept at 0 (see the module docstring)."""
+        n = np.array([p[0] for p in self._prefills], np.float64)
+        ms = np.array([p[1] for p in self._prefills], np.float64)
+        i, j = np.triu_indices(len(n), k=1)
+        distinct = n[i] != n[j]
+        slope = (float(np.median((ms[j] - ms[i])[distinct] / (n[j] - n[i])[distinct]))
+                 if distinct.any() else 0.0)
+        slope = max(slope, self.prefill_lb_ms_per_token)
+        return max(float(np.median(ms - slope * n)), 0.0), slope
 
     # -- predictions ----------------------------------------------------------
     def step_ms(self) -> float:
@@ -143,10 +171,10 @@ class ServingCostModel:
         if prompt_len <= 0:
             return 0.0
         with self._lock:
-            obs = (statistics.median(self._prefill_ms_tok)
-                   if self._prefill_ms_tok else 0.0)
+            fixed, per_token = self._prefill_fit or (0.0, 0.0)
         # the floor of one prefill: its compute, or one read of the weights
-        return max(prompt_len * obs, prompt_len * self.prefill_lb_ms_per_token,
+        return max(fixed + prompt_len * per_token,
+                   prompt_len * self.prefill_lb_ms_per_token,
                    self.prefill_weight_read_ms)
 
     def page_hbm_bytes(self, live_pages: int, growth_pages: int = 0) -> int:
@@ -177,12 +205,15 @@ class ServingCostModel:
 
     def snapshot(self) -> Dict:
         with self._lock:
-            n_step, n_pf = len(self._step_ms), len(self._prefill_ms_tok)
+            n_step, n_pf = len(self._step_ms), len(self._prefills)
+            fixed, per_token = self._prefill_fit or (0.0, self.prefill_lb_ms_per_token)
         snap = {
             "step_lb_ms": round(self.step_lb_ms, 6),
             "step_ms": round(self.step_ms(), 4),
             "prefill_lb_ms_per_token": round(self.prefill_lb_ms_per_token, 6),
             "prefill_weight_read_ms": round(self.prefill_weight_read_ms, 6),
+            "prefill_fixed_ms": round(fixed, 6),
+            "prefill_ms_per_token": round(per_token, 6),
             "dominant": self._terms["dominant"],
             "observed_steps": n_step,
             "observed_prefills": n_pf,

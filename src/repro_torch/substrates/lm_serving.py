@@ -33,6 +33,11 @@ Keywords beyond the reference's (each a deliberate difference):
 
 The resource id is ``lm-serving-torch-{arch}``, so one plane can hold this
 resource beside the reference's ``lm-serving-{arch}``.
+
+Two behaviours differ from the reference's on purpose: ``prepare``'s
+calibration prefills a second, longer prompt, so that the cost model fits
+a prefill's fixed and per-token parts (ROADMAP C5); and ``close`` lets go of
+the engine, which the reference keeps in a reference cycle (ROADMAP C6).
 """
 from __future__ import annotations
 
@@ -60,6 +65,8 @@ from repro_torch.substrates.base import SubstrateAdapter
 #: generous hard cap on how long one invoke may wait for its tokens (the
 #: admission model bounds the realistic wait well below this)
 MAX_WAIT_S = 120.0
+#: the calibration's second prefill takes min(max_seq // 4, this) tokens
+CALIBRATION_LONG_PREFILL = 512
 
 
 class ServingSurrogate(TwinSurrogate):
@@ -252,12 +259,19 @@ class LmServingAdapter(SubstrateAdapter):
             # the first prefill and the first decode graph's capture run
             # here, and seed the cost model with measured step times BEFORE
             # the first real admission decision (the first sample carries
-            # the capture; the admission median washes it out)
-            calib = Request("calib-0",
-                            np.arange(1, 9, dtype=np.int32) %
-                            self.cfg.vocab_size,
-                            max_new_tokens=4)
-            engine.submit(calib)
+            # the capture; the admission median washes it out).  Unlike the
+            # reference, a second, longer prefill follows the 8-token one,
+            # so the prefill fit has two lengths: its fixed part and its
+            # per-token part (ROADMAP C5)
+            engine.submit(Request("calib-0",
+                                  np.arange(1, 9, dtype=np.int32) %
+                                  self.cfg.vocab_size,
+                                  max_new_tokens=4))
+            long_len = min(self.max_seq // 4, CALIBRATION_LONG_PREFILL)
+            engine.submit(Request(
+                "calib-1", np.random.default_rng(self.seed).integers(
+                    0, self.cfg.vocab_size, long_len).astype(np.int32),
+                max_new_tokens=4))
             engine.drain()
         self.engine = engine
         self._stop.clear()
@@ -327,12 +341,21 @@ class LmServingAdapter(SubstrateAdapter):
         self.engine.flush()
 
     def close(self) -> None:
+        """Stop the driver and let go of the engine.  The engine's hooks
+        refer back to this adapter, so they are dropped with it: a closed
+        adapter's engine (its parameters, cache and graphs) is freed as
+        soon as the last outside reference goes, with no wait for the cycle
+        collector (ROADMAP C6; the reference keeps the engine)."""
         self._stop.set()
-        if self.engine is not None:
-            self.engine.wake()      # the idle driver parks unbounded
+        engine = self.engine
+        if engine is not None:
+            engine.wake()           # the idle driver parks unbounded
         if self._driver is not None:
             self._driver.join(timeout=2.0)
             self._driver = None
+        if engine is not None:
+            engine.on_complete = engine.admission = None
+            self.engine = None
 
     def snapshot(self) -> Optional[RuntimeSnapshot]:
         if self.engine is None:

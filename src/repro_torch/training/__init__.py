@@ -4,3 +4,4 @@ from repro_torch.training.train_step import (  # noqa: F401
     build_train_step,
     init_train_state,
 )
+from repro_torch.training.runner import FleetReport, FleetRunner  # noqa: F401

@@ -2,10 +2,13 @@
 ``repro.roofline`` under the same ``Hardware`` figures (one H100 SXM, bf16
 dense).  Everything the two compute from shapes and observations must be
 equal — the roofline terms, the step bound, the cache's bytes, the step
-price after the same observations — except the prefill floor, which the
-port repairs: the reference floors a prompt of n tokens at n weight reads,
-the port at one (``max(2·N·n / peak, weight_bytes / hbm_bw)``).  Where the
-two differ the test states the reference's value beside the port's."""
+price after the same observations — except the prefill price, which the
+port repairs twice: the reference floors a prompt of n tokens at n weight
+reads, the port at one (``max(2·N·n / peak, weight_bytes / hbm_bw)``,
+ROADMAP C3); and the reference prices n tokens at n times the median
+observed ms per token, the port at a fixed part plus a per-token part
+fitted to the observed (tokens, ms) pairs (ROADMAP C5).  Where the two
+differ the test states the reference's value beside the port's."""
 import dataclasses
 
 import numpy as np
@@ -77,19 +80,23 @@ def test_cost_model_matches_reference(arch, paged):
     for key in ("step_lb_ms", "step_ms", "dominant", "observed_steps", "observed_prefills"):
         assert got[key] == want[key], key
     assert ("bytes_per_page" in got) == ("bytes_per_page" in want) == paged
-    # the one added key: the weight read that floors any prefill
-    assert set(got) - set(want) == {"prefill_weight_read_ms"}
+    # the added keys: the weight read that floors any prefill, and the fit
+    assert set(got) - set(want) == {"prefill_weight_read_ms", "prefill_fixed_ms",
+                                    "prefill_ms_per_token"}
 
 
 @pytest.mark.parametrize("arch,paged", CASES)
-def test_prefill_matches_reference_where_observation_exceeds_both_floors(arch, paged):
+@pytest.mark.parametrize("rate", [1.5, 2.0, 3.0])
+def test_prefill_matches_reference_where_observation_exceeds_both_floors(arch, paged, rate):
+    """Prefills observed at one per-token rate above the reference's
+    per-token floor (itself the larger of the port's two floors at one
+    token), at three lengths: the port's fit is that rate with no fixed
+    part, the reference's median is the same rate, and the prices agree."""
     ref, port = _pair(arch, paged)
-    # per-token observations above the reference's per-token floor, which is
-    # itself the larger of the port's two floors at one token
-    per_token = ref.prefill_lb_ms_per_token * np.array([1.5, 2.0, 3.0])
-    for i, ms_tok in enumerate(per_token):
-        ref.observe_prefill(10 + i, ms_tok * (10 + i))
-        port.observe_prefill(10 + i, ms_tok * (10 + i))
+    ms_tok = ref.prefill_lb_ms_per_token * rate
+    for n in (10, 11, 12):
+        ref.observe_prefill(n, ms_tok * n)
+        port.observe_prefill(n, ms_tok * n)
     for n in (1, 7, 64, 2048):
         assert port.prefill_ms(n) == pytest.approx(ref.prefill_ms(n), rel=1e-12)
     for args, kw in (((16, 8), {}), ((16, 8, 12), dict(backlog_prefill_tokens=40)),
@@ -188,3 +195,62 @@ def test_full_size_internlm2_prices_on_meta(paged):
     assert port.prefill_ms(2048) == pytest.approx(want, rel=1e-12)
     assert port.prefill_ms(2048) == pytest.approx(82.256, abs=1e-3)
     assert ref.prefill_ms(2048) == pytest.approx(24283.96, abs=0.01)
+
+
+def test_prefill_fit_prices_a_long_prompt_from_two_lengths():
+    """ROADMAP C5 on full-size internlm2-20b (paged, as the adapter serves
+    it): an 8-token prefill observed at 95 ms (almost all fixed cost) and a
+    512-token one at 160 ms.  The port fits 93.97 ms + 0.129 ms a token and
+    prices 768 tokens at 193.02 ms.  The reference prices them at 768 times
+    its median ms per token, floored at one weight read a token: 9,120 ms
+    from the 8-token sample alone (the one sample its adapter's calibration
+    gives it), and 9,106.5 ms, the floor, from both."""
+    cfg = get_config("internlm2-20b")
+    kw = dict(batch_size=8, max_seq=4096, page_size=16, pool_pages=2048)
+    port = ServingCostModel(cfg, **kw)
+    ref = JaxCostModel(jax_get_config("internlm2-20b"), hw=JAX_HW, **kw)
+    ref.observe_prefill(8, 95.0)
+    assert ref.prefill_ms(768) == pytest.approx(9120.0, rel=1e-12)
+    port.observe_prefill(8, 95.0)
+    for model in (port, ref):
+        model.observe_prefill(512, 160.0)
+    slope = 65.0 / 504
+    fixed = 95.0 - 8 * slope
+    assert port.prefill_ms(768) == pytest.approx(fixed + 768 * slope, rel=1e-12)
+    assert port.prefill_ms(768) == pytest.approx(193.02, abs=0.01)
+    # the median of 11.875 and 0.3125 ms a token is under the reference's
+    # per-token floor of one weight read (11.857 ms), so the floor prices it
+    assert (95.0 / 8 + 160.0 / 512) / 2 < ref.prefill_lb_ms_per_token
+    assert ref.prefill_ms(768) == pytest.approx(768 * ref.prefill_lb_ms_per_token, rel=1e-12)
+    assert ref.prefill_ms(768) == pytest.approx(9106.5, abs=0.1)
+    snap = port.snapshot()
+    assert snap["prefill_fixed_ms"] == round(fixed, 6)
+    assert snap["prefill_ms_per_token"] == round(slope, 6)
+    assert snap["observed_prefills"] == 2
+    # the observed points themselves are priced as observed
+    assert port.prefill_ms(8) == pytest.approx(95.0, rel=1e-12)
+    assert port.prefill_ms(512) == pytest.approx(160.0, rel=1e-12)
+
+
+def test_prefill_fit_floors():
+    """One length observed: the slope is the per-token compute floor and
+    the fixed part takes the rest.  Prefills that grow slower than that
+    floor keep the floor's slope; a fixed part never goes below 0."""
+    cfg = reduced(get_config("internlm2-20b"))
+    cost = ServingCostModel(cfg, batch_size=2, max_seq=64)
+    floor = cost.prefill_lb_ms_per_token
+    cost.observe_prefill(8, 5.0)
+    cost.observe_prefill(8, 7.0)
+    snap = cost.snapshot()
+    assert snap["prefill_ms_per_token"] == round(floor, 6)
+    assert snap["prefill_fixed_ms"] == round(6.0 - 8 * floor, 6)
+    assert cost.prefill_ms(40) == pytest.approx(6.0 + 32 * floor, rel=1e-12)
+    falling = ServingCostModel(cfg, batch_size=2, max_seq=64)
+    falling.observe_prefill(4, 9.0)
+    falling.observe_prefill(40, 3.0)
+    assert falling.snapshot()["prefill_ms_per_token"] == round(floor, 6)
+    steep = ServingCostModel(cfg, batch_size=2, max_seq=64)
+    steep.observe_prefill(10, 1e-9)
+    steep.observe_prefill(20, 10.0)
+    assert steep.snapshot()["prefill_fixed_ms"] == 0.0
+    assert steep.prefill_ms(30) == pytest.approx(30 * (10.0 - 1e-9) / 10, rel=1e-12)

@@ -512,3 +512,83 @@ def test_graphed_engine_serves_from_a_driver_thread(card):
     assert not driver.is_alive()
     assert [r.generated for r in reqs] == want
     assert list(graphed.graph_capture_ms) == [None]
+
+
+def _adapter_cycle(card, cfg):
+    """Prepare, serve one request and close an ``LmServingAdapter``; return
+    a weak reference to its engine and the memory the caller still holds."""
+    import types
+    import weakref
+
+    from repro_torch.substrates import LmServingAdapter
+
+    adapter = LmServingAdapter(cfg.name, cfg=cfg, batch_size=8, max_seq=4096, device=card)
+    adapter.prepare(None)
+    raw = adapter.invoke(types.SimpleNamespace(task=types.SimpleNamespace(
+        task_id="t", payload={"prompt": list(range(1, 40)), "max_new_tokens": 6},
+        latency_budget_ms=None)))
+    assert len(raw["output"]["tokens"]) == 6
+    engine = weakref.ref(adapter.engine)
+    adapter.close()
+    del adapter
+    torch.cuda.synchronize()
+    return engine
+
+
+def test_closed_adapter_frees_the_card_without_the_cycle_collector(card):
+    """ROADMAP C6 on the card: internlm2-20b's layout at 1024 wide, its
+    fp32 decode cache for 8 x 4096 tokens (537 MB), served and closed; with
+    the cycle collector off, the engine is gone and the memory is back
+    within 64 MiB of where it was.  A first cycle warms what the process
+    keeps (cuBLAS workspaces of the driver thread's streams)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config, reduced
+
+    cfg = dataclasses.replace(reduced(get_config("internlm2-20b")), d_model=1024, num_heads=8,
+                              num_kv_heads=8, head_dim=128, d_ff=2048)
+    _adapter_cycle(card, cfg)
+    before = torch.cuda.memory_allocated()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        engine = _adapter_cycle(card, cfg)
+        assert engine() is None
+        assert torch.cuda.memory_allocated() <= before + (64 << 20)
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def test_gpu_node_substrate_trains_on_the_card(card):
+    """``GpuNodeSubstrate`` at the reduced rwkv6-7b with ``use_pallas``:
+    ``prepare``'s warm-up and two invokes of two steps on the card, K3
+    launched twice per layer and step (``remat_policy="full"`` recomputes
+    the forward), each invoke's loss within 5e-3 of a CPU substrate's from
+    the same parameters (the plain chunked scan)."""
+    import types
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model_specs
+    from repro_torch.models.common import init_params
+    from repro_torch.substrates import GpuNodeSubstrate
+
+    cfg = reduced(get_config("rwkv6-7b"), use_pallas=True)
+    params = init_params(model_specs(cfg), seed=2, device="cpu")
+    subs = [GpuNodeSubstrate(cfg.name, cfg=cfg, params=params, device=dev, batch=2, seq=64)
+            for dev in (card, "cpu")]
+    before = k3.rwkv6_scan.launches
+    for sub in subs:
+        sub.prepare(None)
+    per_step = cfg.num_layers * 2
+    assert k3.rwkv6_scan.launches - before == per_step
+    for i in range(2):
+        session = types.SimpleNamespace(task=types.SimpleNamespace(payload={"steps": 2}))
+        before = k3.rwkv6_scan.launches
+        got, want = (sub.invoke(session) for sub in subs)
+        assert k3.rwkv6_scan.launches - before == 2 * per_step
+        assert got["output"]["step"] == want["output"]["step"] == 2 * (i + 1)
+        assert abs(got["output"]["loss"] - want["output"]["loss"]) < 5e-3
+        assert got["telemetry"]["step_ms"] > 0 and got["telemetry"]["health_status"] == "healthy"
+    assert subs[0]._state.params["embed"].device.type == "cuda"

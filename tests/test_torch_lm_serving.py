@@ -190,8 +190,12 @@ def test_adapter_snapshot_and_twin_state():
     try:
         snap = adapter.snapshot()
         assert snap.resource_id == adapter.resource_id and snap.health_status == "healthy"
-        assert snap.extra["requests"] == 1 and snap.extra["live_slots"] == 0
-        assert snap.extra["observed_prefills"] == 1 and snap.extra["observed_steps"] == 3
+        # the calibration: an 8-token prefill and a second of max_seq // 4
+        # tokens (ROADMAP C5), 4 tokens each, decoded together
+        assert snap.extra["requests"] == 2 and snap.extra["live_slots"] == 0
+        assert snap.extra["observed_prefills"] == 2 and snap.extra["observed_steps"] == 3
+        assert snap.extra["prefill_fixed_ms"] >= 0.0
+        assert snap.extra["prefill_ms_per_token"] >= snap.extra["prefill_lb_ms_per_token"]
         assert snap.extra["bytes_per_page"] > 0 and snap.extra["pool_pages"] == 16
         assert snap.to_dict()["age_of_information_ms"] == 0.0
         twin = adapter.make_twin()
@@ -205,3 +209,30 @@ def test_adapter_snapshot_and_twin_state():
         assert adapter.engine.live_slots() == 0 and adapter.engine.audit_pages()["used"] == 0
     finally:
         adapter.close()
+
+
+def test_closed_adapter_frees_its_engine_without_the_cycle_collector():
+    """ROADMAP C6: ``close`` drops the engine and the hooks that refer back
+    to the adapter, so the engine (its parameters and cache) goes with the
+    last outside reference, the cycle collector off."""
+    import gc
+    import weakref
+
+    adapter = LmServingAdapter(batch_size=2, max_seq=MAX_SEQ, device="cpu", paged=True,
+                               page_size=8)
+    adapter.prepare(None)
+    adapter.invoke(types.SimpleNamespace(task=_task("c6", 6, 4)))
+    held = adapter.engine
+    engine, params = weakref.ref(held), weakref.ref(held.params["embed"])
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        adapter.close()
+        assert adapter.engine is None
+        assert held.on_complete is None and held.admission is None
+        del held
+        assert engine() is None and params() is None
+        del adapter
+    finally:
+        if enabled:
+            gc.enable()

@@ -15,16 +15,20 @@ from repro.configs import reduced as jax_reduced
 from repro.models import build_decode_step as jax_build_decode_step
 from repro.models import build_prefill_step as jax_build_prefill_step
 from repro.models import decode_cache as jax_decode_cache
+from repro.models import loss_fn as jax_loss_fn
 from repro.models import model_specs as jax_model_specs
+from repro.models.model import count_params as jax_count_params
+from repro.configs import ARCH_REGISTRY as JAX_ARCH_REGISTRY
 from repro.models import attention as jattn
 from repro.models.common import init_params as jax_init_params
 from repro.serving.cache_utils import extend_cache as jax_extend_cache
 from repro.training.checkpoint import _flatten
 from test_decode_parity import full_forward_logits as jax_full_forward_logits
-from repro_torch.configs import get_config, reduced
-from repro_torch.models import (build_decode_step, build_prefill_step, decode_cache,
-                                full_forward_logits)
+from repro_torch.configs import ARCH_REGISTRY, get_config, reduced
+from repro_torch.models import (build_decode_step, build_prefill_step, count_params,
+                                decode_cache, full_forward_logits, loss_fn)
 from repro_torch.models import attention as attn
+from repro_torch.models import common as cm
 from repro_torch.models.common import init_params
 from repro_torch.models.transformer import LayerDef, Stack
 from repro_torch.serving.cache_utils import extend_cache
@@ -34,7 +38,11 @@ TOL = dict(rtol=2e-3, atol=2e-3)
 # recurrentgemma-9b's 12-token sequences stay below its 16-token window and
 # the K2 gate (S % 64), so JAX never reaches its broken Pallas K2 (ROADMAP C)
 CASES = [("whisper-large-v3", False), ("whisper-large-v3", True), ("internlm2-20b", False),
-         ("recurrentgemma-9b", False), ("recurrentgemma-9b", True)]
+         ("recurrentgemma-9b", False), ("recurrentgemma-9b", True),
+         ("qwen2.5-32b", False), ("command-r-35b", False), ("nemotron-4-340b", False)]
+#: the dense archs of this slice: qkv bias; layernorm and tied embeddings;
+#: squared-ReLU with no gate, layernorm and (at full size) head dim 192
+DENSE_ARCHS = ["qwen2.5-32b", "command-r-35b", "nemotron-4-340b"]
 
 
 def _configs(arch, use_pallas):
@@ -159,3 +167,58 @@ def test_rwkv_serving_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="A8.2"):
         stack.decode(params, x[:, :1], {}, 0)
     assert stack.train(params, x, torch.arange(4)).shape == x.shape
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_loss_and_grads_match_jax(arch, use_pallas):
+    """``loss_fn`` and its grads for the slice's dense archs against the
+    JAX package on the same parameters, at ``remat_policy="full"`` (the
+    configs' default) in both: the loss within 5e-3, each grad leaf within
+    rtol 1e-3 / atol 1e-4 (``tests/test_use_pallas.py``) or twice the JAX
+    package's own change when its parameters move by 1e-7 relative,
+    whichever is larger, as ``tests/test_torch_train.py::test_grads_match_jax``
+    holds reduced internlm2-20b: the embedding grads under a norm over
+    embeddings of std 0.02 move by up to ~7e-4 with fp32 rounding."""
+    jcfg, tcfg = _configs(arch, use_pallas)
+    assert tcfg.remat_policy == jcfg.remat_policy == "full"
+    jparams = jax_init_params(jax_model_specs(jcfg), seed=3)
+    tparams = params_from_jax(_flatten(jparams), device="cpu")
+    rng = np.random.default_rng(4)
+    b = {k: rng.integers(0, tcfg.vocab_size, (2, 32)).astype(np.int32)
+         for k in ("tokens", "labels")}
+    value_and_grad = jax.jit(jax.value_and_grad(
+        lambda p: jax_loss_fn(jcfg, p, {k: jnp.asarray(v) for k, v in b.items()})[0]))
+    jloss, jgrads = value_and_grad(jparams)
+    flat, tdef = jax.tree_util.tree_flatten(jparams)
+    nudged = jax.tree_util.tree_unflatten(
+        tdef, [x * (1 + 1e-7 * rng.normal(size=x.shape).astype(np.float32)) for x in flat])
+    jg_nudged = _flatten(value_and_grad(nudged)[1])
+    leaves = {path: t.detach().clone().requires_grad_() for path, t in cm.tree_leaves(tparams)}
+    loss, _ = loss_fn(tcfg, cm.tree_from_paths(tparams, leaves),
+                      {k: torch.from_numpy(v).long() for k, v in b.items()})
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    assert abs(loss.item() - float(jloss)) < 5e-3
+    want = _flatten(jgrads)
+    assert sorted(grads) == sorted(want)
+    if tcfg.qkv_bias:
+        assert {"decoder/blocks/0/mixer/bq", "decoder/blocks/0/mixer/bk"} <= set(grads)
+    if tcfg.tie_embeddings:
+        assert "unembed" not in grads
+    for key, ref in want.items():
+        diff = np.abs(grads[key].numpy() - ref)
+        noise = 2 * np.max(np.abs(jg_nudged[key] - ref))
+        bound = np.maximum(1e-4 + 1e-3 * np.abs(ref), noise)
+        assert np.all(diff <= bound), (key, float(diff.max()), noise)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCH_REGISTRY))
+def test_count_params_matches_jax(arch):
+    """At full size, for every arch both packages register, under the four
+    combinations of ``active_only`` and ``include_embed``."""
+    assert arch in JAX_ARCH_REGISTRY
+    for active_only in (False, True):
+        for include_embed in (False, True):
+            assert count_params(get_config(arch), active_only, include_embed) == jax_count_params(
+                jax_get_config(arch), active_only, include_embed)
+    assert count_params(get_config(arch), include_embed=False) < count_params(get_config(arch))

@@ -8,6 +8,7 @@ on grads (``tests/test_use_pallas.py``).  With ``use_pallas`` the JAX side
 runs its Pallas kernels in interpret mode and the port its plain versions
 (CPU tensors)."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -321,3 +322,117 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 def test_launcher_names_the_distributed_item(flags):
     with pytest.raises(NotImplementedError, match="A9"):
         launcher.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu", *flags])
+
+
+POLICIES = ["nothing", "full", "dots", "dots_no_batch"]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "internlm2-20b"])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_remat_policy_matches_nothing_and_jax(arch, policy):
+    """Each repeated block wrapped in ``remat_policy`` (``Stack.train``, as
+    the reference's ``cm.maybe_remat``): loss and grads equal to
+    ``"nothing"``'s bit for bit, and within 5e-3 of the JAX package's under
+    the same policy.  ``use_pallas`` routes K1 and K3 through their plain
+    versions under the recompute (CPU tensors)."""
+    jcfg, tcfg = _configs(arch, vocab_size=64, use_pallas=True, remat_policy=policy)
+    jp, tp = _params(jcfg, seed=5)
+    jb, tb = _batch(2, 64, 64, seed=3)
+    jl, jg = jax.jit(jax.value_and_grad(lambda p: jax_loss_fn(jcfg, p, jb)[0]))(jp)
+    tg = _port_grads(tcfg, tp, tb)
+    tl, _ = loss_fn(tcfg, tp, tb)
+    base = dataclasses.replace(tcfg, remat_policy="nothing")
+    bl, _ = loss_fn(base, tp, tb)
+    bg = _port_grads(base, tp, tb)
+    assert float(tl) == float(bl)
+    for key, g in bg.items():
+        torch.testing.assert_close(tg[key], g, rtol=0, atol=0, msg=key)
+    assert abs(float(tl) - float(jl)) < 5e-3
+    for key, ref in _flatten(jg).items():
+        np.testing.assert_allclose(tg[key].numpy(), ref, rtol=0, atol=5e-3, err_msg=key)
+
+
+def _saved_bytes(fn):
+    total = 0
+
+    def pack(t):
+        nonlocal total
+        total += t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, total
+
+
+def test_full_remat_saves_fewer_bytes_for_backward():
+    """What autograd keeps for backward over ``loss_fn`` (counted as
+    ``tests/test_torch_attention.py`` counts it): ``"full"`` keeps each
+    block's inputs, not its activations.  (The selective policies keep
+    their products' outputs inside the checkpoint's own store, which these
+    hooks do not see.)"""
+    saved = {}
+    for policy in ("nothing", "full"):
+        _, tcfg = _configs("internlm2-20b", vocab_size=64, remat_policy=policy)
+        tp = init_train_state(tcfg, device="cpu").params
+        leaves = {path: t.requires_grad_() for path, t in cm.tree_leaves(tp)}
+        _, tb = _batch(2, 64, 64, seed=3)
+        _, saved[policy] = _saved_bytes(lambda: loss_fn(tcfg, cm.tree_from_paths(tp, leaves),
+                                                        tb)[0])
+    assert saved["full"] * 5 < saved["nothing"], saved
+
+
+def test_moe_remat_policy_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="A8.3"):
+        cm.remat_policy("moe")
+    _, tcfg = _configs("internlm2-20b", remat_policy="moe")
+    tp = init_train_state(tcfg, device="cpu").params
+    _, tb = _batch(2, 16, 128, seed=0)
+    with pytest.raises(NotImplementedError, match="A8.3"):
+        _port_grads(tcfg, tp, tb)
+    assert cm.maybe_remat(loss_fn, "nothing") is loss_fn
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "rwkv6_scan"])
+@pytest.mark.parametrize("policy", ["nothing", "full"])
+def test_kernel_with_ref_vjp_under_remat(kernel, policy):
+    """K1's and K3's autograd wrapper (``kernels/autodiff.py``) inside a
+    non-reentrant recompute, with each plain version standing in for its
+    kernel: the same grads as autograd through the plain version, and the
+    kernel's forward run once per call, twice under ``"full"`` (the
+    recompute): what ``chip_smoke.py`` counts on the card."""
+    from repro_torch.kernels.autodiff import kernel_with_ref_vjp
+    from repro_torch.kernels.flash_attention.ops import mha_ref
+    from repro_torch.kernels.rwkv6.ops import time_mix_chunked
+
+    rng = np.random.default_rng(7)
+    if kernel == "flash_attention":
+        plain = functools.partial(mha_ref, causal=True)
+        shapes = [(2, 32, 4, 16), (2, 32, 2, 16), (2, 32, 2, 16)]
+    else:
+        plain = functools.partial(time_mix_chunked, chunk=16)
+        shapes = [(1, 48, 2, 16)] * 3 + [(1, 48, 2, 16), (2, 16)]
+    args = [torch.from_numpy(rng.normal(size=s).astype(np.float32) * 0.5).requires_grad_()
+            for s in shapes]
+    if kernel == "rwkv6_scan":
+        with torch.no_grad():
+            args[3].copy_(-torch.exp(args[3]))           # log decays below 0
+    calls = []
+
+    def kernel_fn(*a):
+        calls.append(1)
+        with torch.no_grad():
+            return plain(*a)
+
+    op = kernel_with_ref_vjp(kernel_fn, plain)
+
+    def block(*a):
+        return torch.tanh(op(*[t * 1.0 for t in a]))
+
+    w = torch.from_numpy(rng.normal(size=shapes[0]).astype(np.float32))
+    out = cm.maybe_remat(block, policy)(*args)
+    got = torch.autograd.grad((out * w).sum(), args)
+    assert len(calls) == (2 if policy == "full" else 1)
+    want = torch.autograd.grad((torch.tanh(plain(*args)) * w).sum(), args)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
