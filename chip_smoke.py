@@ -59,11 +59,14 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    tokens and a quarter of ``max_seq``, fit the prefill price and capture
    the first graph), then ``invoke`` from 8 threads at once with duck-typed
    sessions; each request's measured time beside the surrogate's
-   prediction and their divergence; a 1 ms budget refused ``DEADLINE`` with
-   no device work, a 60 s budget served; ``snapshot()`` and the twin's
-   ``simulate``.  K1 must launch 32 times in every admission.  The closed
-   adapter, once dropped, must leave the card's memory within 64 MiB of
-   where it started, with no cycle collection.
+   prediction, the backlog the engine held when the twin priced it, and
+   their divergence, reported and not held: the first of the 8 requests
+   is priced on an idle engine and served behind the admissions that
+   arrive after it (ROADMAP C7, open); a 1 ms budget refused ``DEADLINE``
+   with no device work, a 60 s budget served; ``snapshot()`` and the
+   twin's ``simulate``.  K1 must launch 32 times in every admission.  The
+   closed adapter, once dropped, must leave the card's memory within 64
+   MiB of where it started, with no cycle collection.
 9. parity — the full-width fp32 encoder, layer by layer, through the kernel
    and through the plain path from the same input; the largest difference
    must be <= 1e-3 (see ``parity_phase`` for why per layer).
@@ -153,6 +156,33 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
     then 2 under ``"full"``; step ms, tokens/s and peak GB of each.  K1
     must launch once per layer and microbatch, twice under ``"full"``;
     every layer's q/k/v bias must receive a gradient.
+22. rwkv_serving — rwkv6-7b at full size (32 layers, 7.06 B parameters) in
+    bf16, ``use_pallas``: ``ServingEngine(batch_size=8, max_seq=4096)``,
+    graphed, 16 requests (prompts of 17-2100 tokens, multiples of 32 and
+    not) and a ``generate`` group; K3 must launch in no prefill (serving
+    keeps the state).  An eager engine serves the same requests with
+    identical tokens; one step's logits through the graph are bit-equal to
+    the eager step's; prime ms and step ms beside their bounds, tokens/s,
+    the idle share of 8 decode steps, peak GB.  Then the carries in fp32
+    at 4 layers: one decode step after a prefill of n tokens against a
+    prefill of n + 1, layer by layer, within 1e-4 of the largest output.
+23. moe_serving — moonshot-v1-16b-a3b at full size (48 layers, 28.39 B
+    parameters, 56.8 GB in bf16), paged with the prefix cache (page 16, a
+    pool of 1,088 pages), graphed, on ``paged_serving``'s 16-request trace
+    with its checks; an eager engine with identical tokens, one step's
+    logits bit-equal; step ms against the all-experts and the
+    active-weights bounds; the (token, expert) pairs the capacity dropped
+    in one decode step and one prefill; peak GB.
+24. mla_serving — deepseek-v2-236b at full width cut to 4 of 60 layers (1
+    dense + 3 MoE; 13.30 B parameters), paged MLA latents with the prefix
+    cache, the same trace and checks, and the contiguous engine's tokens
+    beside the paged engine's; then both again at a capacity where no
+    expert drops a token, where every parting of their tokens must be a
+    near-tie of the full forward (both candidates in its top 1000).
+25. moe_train — moonshot-v1-16b-a3b at full width cut to 2 of 48 layers,
+    8 x 4096 tokens in 4 microbatches under ``"full"``: K1 once per
+    attention layer and microbatch and again for the MoE block's
+    recompute, the aux loss finite and positive, the 6·N_active·D floor.
 
 Output: the card (``nvidia-smi`` name and power limit), one JSON line per
 phase, the ``{"kernels": [...]}`` line, and as the last line
@@ -922,45 +952,68 @@ def serve_trace(eng, trace, group=()) -> dict:
 
 
 def serving_work(cfg) -> dict:
-    """Parameter counts the serving bounds read: the decoder's layers, the
-    unembedding (read whole for every step's logits; the embedding is only
-    gathered), and the KV bytes one cached token holds."""
+    """Parameter counts the serving bounds read: the decoder's layers (all
+    of them, and those a token uses: an expert leaf at top_k / num_experts),
+    the unembedding (read whole for every step's logits; the embedding is
+    only gathered), the cache bytes one cached token holds (attn K/V, MLA
+    latents) and those a batch row holds whatever its length (rwkv state and
+    token shifts), and the attention FLOPs of one (query, key) pair."""
     from repro_torch.models import model_specs
     from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import build_layer_defs
 
-    layer = sum(math.prod(s.shape) for path, s in tree_leaves(model_specs(cfg))
-                if path.startswith("decoder/"))
-    attn_layers = sum(kind == "attn" for kind in cfg.layer_kinds())
+    m = cfg.moe
+    layer = active = 0
+    for path, spec in tree_leaves(model_specs(cfg)):
+        if path.startswith("decoder/"):
+            n = math.prod(spec.shape)
+            layer += n
+            active += n * m.top_k / m.num_experts if m and "expert" in spec.axes else n
+    mixers = [d.mixer for d in build_layer_defs(cfg)]
+    attn_layers, mla_layers = mixers.count("attn"), mixers.count("mla")
     elem = torch.tensor([], dtype=cfg.dtype).element_size()
-    return dict(layer_params=layer, head_params=cfg.d_model * cfg.vocab_size, elem=elem,
-                attn_layers=attn_layers,
-                kv_token_bytes=2 * attn_layers * cfg.num_kv_heads * cfg.resolved_head_dim * elem)
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    kv = 2 * attn_layers * cfg.num_kv_heads * hd * elem
+    pair_flops = 4 * hd * H * attn_layers
+    if cfg.mla is not None:
+        a = cfg.mla
+        kv += mla_layers * (a.kv_lora_rank + a.qk_rope_head_dim) * elem
+        pair_flops += 2 * (a.qk_nope_head_dim + a.qk_rope_head_dim + a.v_head_dim) * H * mla_layers
+    row = 0
+    if cfg.rwkv is not None:
+        row = mixers.count("rwkv") * (H * cfg.rwkv.head_dim ** 2 * 4 + 2 * cfg.d_model * elem)
+    return dict(layer_params=layer, active_layer_params=active,
+                head_params=cfg.d_model * cfg.vocab_size, elem=elem, attn_layers=attn_layers,
+                mla_layers=mla_layers, kv_token_bytes=kv, row_state_bytes=row,
+                pair_flops=pair_flops)
 
 
 def prefill_bound(cfg, work, new: int, past: int) -> dict:
     """Least time of one B=1 prefill of ``new`` tokens after ``past`` cached
-    ones: 2 FLOPs per layer parameter and token, 4·hd per visible (query,
-    key) pair of each head and layer, one token's logits; against the
+    ones: 2 FLOPs per active layer parameter and token, the attention FLOPs
+    of each visible (query, key) pair, one token's logits; against the
     weights read once, the past K/V read and the new K/V written.  The
     peak is bf16's for bf16 and the fp32 units' for fp32 (TF32 off)."""
     pairs = new * past + new * (new + 1) // 2
-    flops = (2 * work["layer_params"] * new
-             + 4 * cfg.resolved_head_dim * cfg.num_heads * work["attn_layers"] * pairs
+    flops = (2 * work["active_layer_params"] * new + work["pair_flops"] * pairs
              + 2 * work["head_params"])
     nbytes = ((work["layer_params"] + work["head_params"]) * work["elem"]
-              + (past + new) * work["kv_token_bytes"])
+              + (past + new) * work["kv_token_bytes"] + work["row_state_bytes"])
     peak = PEAK_BF16_FLOPS if work["elem"] == 2 else PEAK_FP32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops > t_bytes else "bytes", flops=flops)
 
 
-def decode_bound_ms(work, kv_tokens: float) -> float:
-    """Least time of one decode step: the weights (all but the embedding)
-    and the live rows' cached K/V read once, at the memory rate (the
-    step's 2·params·rows FLOPs take far less)."""
-    return ((work["layer_params"] + work["head_params"]) * work["elem"]
-            + kv_tokens * work["kv_token_bytes"]) / PEAK_BYTES * 1e3
+def decode_bound_ms(work, kv_tokens: float, rows: int = 0, active: bool = False) -> float:
+    """Least time of one decode step: the weights (all but the embedding;
+    with ``active`` only the experts' share a token uses, as if only the
+    routed experts were read), the live rows' cached K/V and the ``rows``'
+    resident state (read and written) once, at the memory rate (the step's
+    2·params·rows FLOPs take far less)."""
+    params = work["active_layer_params" if active else "layer_params"] + work["head_params"]
+    return (params * work["elem"] + kv_tokens * work["kv_token_bytes"]
+            + 2 * rows * work["row_state_bytes"]) / PEAK_BYTES * 1e3
 
 
 def token_agreement(a, b) -> float:
@@ -1201,9 +1254,10 @@ def divergence(cfg, params, prompt, a, b) -> dict:
         logits = full_forward_logits(cfg, params, {"tokens": torch.as_tensor(
             seq[None], dtype=torch.int64, device="cuda")})[0, -1]
     top = torch.topk(logits, 3)
-    return dict(at=at, tokens=(a.generated[at], b.generated[at]),
-                full_forward_logits=(logits[a.generated[at]].item(),
-                                     logits[b.generated[at]].item()),
+    pair = (a.generated[at], b.generated[at])
+    return dict(at=at, tokens=pair,
+                full_forward_logits=tuple(logits[t].item() for t in pair),
+                full_forward_ranks=tuple(int((logits > logits[t]).sum()) for t in pair),
                 full_forward_top3=list(zip(top.indices.tolist(), top.values.tolist())))
 
 
@@ -1272,9 +1326,10 @@ def paged_step_parity(cfg, params, lengths=(300, 77), steps=24) -> tuple:
             x = _embed_tokens(cfg, params, token)
             rel = []
             for group, key, r, d, lp in dec._layers(params["decoder"]):
-                want = apply_layer_decode(cfg, d, lp, x, _at(c_layers[group][key], r), pos)
-                got = apply_layer_decode(cfg, d, lp, x, _at(p_layers[group][key], r), pos,
-                                         tables, ps)
+                want, _ = apply_layer_decode(cfg, d, lp, x, _at(c_layers[group][key], r),
+                                             pos, 0.0)
+                got, _ = apply_layer_decode(cfg, d, lp, x, _at(p_layers[group][key], r), pos,
+                                            0.0, tables, ps)
                 rel.append(((got - want).abs().max() / want.abs().max()).item())
                 if not torch.isfinite(got).all() or not rel[-1] <= LAYER_REL:
                     raise AssertionError(f"paged decode at {pos.tolist()}, layer {len(rel) - 1}: "
@@ -1332,9 +1387,9 @@ def prefix_hit_parity(cfg, params, tokens, pcache, past, logits) -> dict:
     layer_err = []
     for group, key, r, d, lp in dec._layers(params["decoder"]):
         lpast = past[group][key] if r is None else _at(past[group][key], r)
-        want, wcache = apply_layer_prefill(cfg, d, lp, x, positions, None)
-        got, gcache = apply_layer_prefill(cfg, d, lp, x[:, P:], positions[P:], None,
-                                          past=lpast, past_len=P)
+        want, wcache, _ = apply_layer_prefill(cfg, d, lp, x, positions, None, 0.0)
+        got, gcache, _ = apply_layer_prefill(cfg, d, lp, x[:, P:], positions[P:], None, 0.0,
+                                             past=lpast, past_len=P)
         rel = {}
         for name, g, w in (("out", got, want[:, P:]), ("k", gcache["k"], wcache["k"][:, P:]),
                            ("v", gcache["v"], wcache["v"][:, P:])):
@@ -1579,15 +1634,17 @@ def serving_substrate_phase(cfg, params, *, max_seq: int, paged: bool, prompts,
     the first decode graph is captured), then ``invoke`` with duck-typed
     sessions from 8 threads at once, ``SUBSTRATE_NEW`` new tokens each.
     Per request: the measured ``total_ms`` beside the surrogate's
-    ``predicted_total_ms`` (priced just before the invoke) and their
-    divergence as ``ServingSurrogate.divergence`` scores it.  Then a doomed
-    budget (1 ms) must be refused ``DEADLINE`` with no device work (engine
-    metrics and kernel launches unchanged) and a generous one (60 s)
-    served; ``snapshot()`` and the twin's ``simulate`` are reported.  Where
+    ``predicted_total_ms`` (priced just before the invoke, behind the
+    backlog the engine holds then, which depends on which threads submitted
+    first: ROADMAP C7), that backlog, and their divergence as
+    ``ServingSurrogate.divergence`` scores it.  Then a doomed budget (1 ms)
+    must be refused ``DEADLINE`` with no device work (engine metrics and
+    kernel launches unchanged) and a generous one (60 s) served;
+    ``snapshot()`` and the twin's ``simulate`` are reported.  Where
     ``k1_per_admission`` is set (whisper), K1 must launch that many times
     in every admission (the calibrations' included).  With
     ``hold_divergence`` every request's divergence must be within the
-    surrogate's own tolerance (ROADMAP C5)."""
+    surrogate's own tolerance (ROADMAP C5, C7)."""
     import types
 
     from repro_torch.core.errors import AdmissionRefused, ErrorCode
@@ -1617,6 +1674,8 @@ def serving_substrate_phase(cfg, params, *, max_seq: int, paged: bool, prompts,
             return dict(id=f"s{i}", prompt=len(prompts[i]), total_ms=raw["output"]["total_ms"],
                         predicted_total_ms=sim["output"]["predicted_total_ms"],
                         divergence=twin.surrogate.divergence(raw["output"], sim["output"]),
+                        **{k: sim["telemetry"][k] for k in (
+                            "backlog_tokens", "backlog_prefill_tokens", "prefix_cached_tokens")},
                         ttft_ms=raw["telemetry"]["ttft_ms"],
                         deadline_expired=raw["telemetry"]["deadline_expired"])
 
@@ -1647,13 +1706,6 @@ def serving_substrate_phase(cfg, params, *, max_seq: int, paged: bool, prompts,
         adapter.close()
     launches = read_counts()
     admissions = len(prompts) + 3                 # two calibration prefills, the generous request
-    worst = max(q["divergence"] for q in requests)
-    if hold_divergence and worst > twin.surrogate.tolerance:
-        raise AssertionError(f"serving_substrate {cfg.name}: the twin diverged {worst:.3f} from "
-                             f"a served request, past its tolerance {twin.surrogate.tolerance}")
-    if k1_per_admission and launches["flash_attention"] != k1_per_admission * admissions:
-        raise AssertionError(f"serving_substrate {cfg.name}: K1 launched "
-                             f"{launches['flash_attention']} times over {admissions} admissions")
     res = dict(arch=cfg.name, layers=cfg.num_layers, paged=paged, max_seq=max_seq,
                resource_id=adapter.resource_id, prepare_s=prepare_s, wall_s=wall_s,
                requests=requests, refusal=refusal,
@@ -1665,6 +1717,14 @@ def serving_substrate_phase(cfg, params, *, max_seq: int, paged: bool, prompts,
                k1_launches=launches["flash_attention"], admissions=admissions,
                pool_stats=engine.pool_stats())
     emit({"phase": f"serving_substrate {cfg.name}", **res})
+    worst = max(requests, key=lambda q: q["divergence"])
+    if hold_divergence and worst["divergence"] > twin.surrogate.tolerance:
+        raise AssertionError(f"serving_substrate {cfg.name}: the twin diverged "
+                             f"{worst['divergence']:.3f} from {worst['id']}, past its "
+                             f"tolerance {twin.surrogate.tolerance}")
+    if k1_per_admission and launches["flash_attention"] != k1_per_admission * admissions:
+        raise AssertionError(f"serving_substrate {cfg.name}: K1 launched "
+                             f"{launches['flash_attention']} times over {admissions} admissions")
     # a closed adapter lets go of its engine: dropping the last references
     # frees the engine's cache and graphs at once, with no cycle collection
     del engine, adapter
@@ -1673,6 +1733,371 @@ def serving_substrate_phase(cfg, params, *, max_seq: int, paged: bool, prompts,
     if torch.cuda.memory_allocated() > allocated + (64 << 20):
         raise AssertionError(f"serving_substrate {cfg.name}: {torch.cuda.memory_allocated()} "
                              f"bytes allocated after the adapter closed, {allocated} before")
+    return res
+
+
+#: rwkv_serving: rwkv6-7b at full size; prompts that are multiples of 32 and
+#: others (a remainder chunk after the chunks of 32), up to past 2048
+RWKV_LENGTHS = (17, 45, 64, 77, 300, 1000, 2047, 2100, 32, 128, 33, 96, 256, 500, 1024, 1500)
+RWKV_GROUP = (100, 333, 700, 1024)              # the generate group, padded to 1024
+RWKV_MAX_SEQ = 4096
+#: the carry check: fp32 at full width, this many layers, after these prefills
+RWKV_CARRY_LAYERS = 4
+RWKV_CARRY_LENGTHS = (17, 45, 64, 300, 2047)
+#: moe_serving: moonshot-v1-16b-a3b at full size, paged; the pool holds the
+#: trace's reservations (about 1,050 pages of 16 tokens, 393 KB a token)
+MOE_POOL_PAGES = 1088
+#: moe_train / mla_serving depths
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 2
+MLA_LAYERS = 4                                  # 1 dense + 3 MoE of deepseek-v2-236b's 60
+#: a parting of the paged and contiguous MLA engines is a near-tie when both
+#: tokens rank below this in the full forward's logits (of 102400)
+LAYOUT_RANK = 1000
+
+
+def new_trace(cfg, lengths, max_new, seed) -> list:
+    """``serve_trace`` requests of the given prompt lengths and budgets."""
+    rng = np.random.default_rng(seed)
+    return [(f"r{i}", rng.integers(0, cfg.vocab_size, n).astype(np.int32), int(m), False)
+            for i, (n, m) in enumerate(zip(lengths, max_new))]
+
+
+def tokens_of(run) -> list:
+    return [r.generated for r in run["requests"]]
+
+
+def graphed_against_eager(cfg, params, trace, graphed_run, **engine_kw) -> dict:
+    """An eager engine (``decode_graphs=False``) with ``engine_kw`` serves the
+    trace the graphed engine served in ``graphed_run``: the greedy tokens
+    must be identical.  Returns the eager run's step ms, tokens/s and
+    prime ms."""
+    from repro_torch.serving import ServingEngine
+
+    eager = ServingEngine(cfg, params, batch_size=8, decode_graphs=False, **engine_kw)
+    run = serve_trace(eager, trace)
+    if tokens_of(run) != tokens_of(graphed_run):
+        raise AssertionError(f"{cfg.name}: graphed and eager greedy tokens differ; agreement "
+                             f"{token_agreement(graphed_run['requests'], run['requests'])}")
+    out = dict(tokens_identical=True, step_ms=run["step_ms"],
+               step_ms_median=run["step_ms_median"], tokens_per_s=run["tokens_per_s"],
+               prime_ms=run["metrics"]["prefill_ms"] / len(trace))
+    del eager, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_drops(eng, cfg, prompt_len: int = 1024) -> dict:
+    """(token, expert) pairs the capacity dropped, summed over the MoE
+    layers, in one eager decode step of a full batch (each row on its own
+    timeline) and in one B=1 prefill of ``prompt_len`` tokens; counted by
+    wrapping ``models/moe.py::_dispatch`` around eager calls only (no
+    graph is captured meanwhile).  The engine is flushed after."""
+    from repro_torch.models import moe
+    from repro_torch.serving import Request
+
+    counts = []
+    dispatch = moe._dispatch
+
+    def counting(top_i, num_experts, cap):
+        out = dispatch(top_i, num_experts, cap)
+        counts.append(((~out[3]).sum(), out[3].numel(), cap))
+        return out
+
+    rng = np.random.default_rng(4)
+    for i in range(eng.batch_size):
+        eng.submit(Request(f"m{i}", rng.integers(0, cfg.vocab_size, 64 + 5 * i)
+                           .astype(np.int32), max_new_tokens=4))
+    eng.step()
+    res = {}
+    moe._dispatch = counting
+    try:
+        with torch.inference_mode():
+            live = [s for s in eng._slots if s.request is not None]
+            width = eng._grow_tables(live) if eng._pool is not None else None
+            eng._decode(eng.params, eng._cb_cache, *eng._step_inputs(width))
+            res["decode"] = counts[:]
+            counts.clear()
+            tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, prompt_len)),
+                                     device="cuda")
+            eng._prefill(eng.params, {"tokens": tokens})
+            res["prefill"] = counts[:]
+    finally:
+        moe._dispatch = dispatch
+    eng.flush()
+    return {k: dict(rows=eng.batch_size if k == "decode" else 1,
+                    tokens=eng.batch_size if k == "decode" else prompt_len,
+                    moe_layers=len(v), capacity=v[0][2],
+                    pairs=sum(n for _, n, _ in v),
+                    dropped=int(sum(d for d, _, _ in v).item())) for k, v in res.items()}
+
+
+def rwkv_serving_phase(cfg) -> dict:
+    """rwkv6-7b at full size (32 layers, 7.06 B parameters) in bf16 with
+    random seeded weights and ``use_pallas=True``: ``ServingEngine(batch_size=8,
+    max_seq=4096)``, graphed, 16 requests through ``submit``/``drain`` and
+    one ``generate`` group.  K3 must launch in no prefill: serving keeps
+    the state, and the reference's gate (``want_state``) keeps that path off
+    the kernel.  An eager engine serves the same 16 requests with identical
+    tokens; one step's logits through the graph are bit-equal to the eager
+    step's; ``rwkv_carry_parity`` holds the carries in fp32.  Reported:
+    prime ms against the admissions' bounds, step ms against one read of
+    the weights and the rows' state, tokens/s, the device idle share of 8
+    decode steps, peak GB."""
+    from repro_torch.serving import Request
+
+    eng, info = new_engine(cfg, max_seq=RWKV_MAX_SEQ)
+    budgets = np.random.default_rng(0).permutation(
+        np.linspace(8, 64, len(RWKV_LENGTHS)).astype(int))
+    trace = new_trace(cfg, RWKV_LENGTHS, budgets, seed=3)
+    rng = np.random.default_rng(4)
+    group = [Request(f"g{i}", rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                     max_new_tokens=16) for i, n in enumerate(RWKV_GROUP)]
+    reset_counts()
+    run = serve_trace(eng, trace, group)
+    launches = read_counts()
+    if launches["rwkv6_scan"]:
+        raise AssertionError(f"rwkv_serving: K3 launched {launches['rwkv6_scan']} times; "
+                             "the prefill keeps its state and must not take it")
+    work = serving_work(cfg)
+    prime = [dict(prompt=n, ms=a["ms"], **prefill_bound(cfg, work, n, 0))
+             for n, a in zip(RWKV_LENGTHS, run["admissions"])]
+    gen = run["generate_metrics"]
+    res = dict(
+        arch=cfg.name, layers=cfg.num_layers, max_seq=RWKV_MAX_SEQ, requests=len(trace),
+        launches=launches, prime=prime, prime_ms=run["metrics"]["prefill_ms"] / len(trace),
+        prime_bound_ms_mean=sum(p["bound_ms"] for p in prime) / len(prime),
+        step_ms=run["step_ms"], step_ms_median=run["step_ms_median"],
+        step_bound_ms=decode_bound_ms(work, 0, rows=8), row_state_bytes=work["row_state_bytes"],
+        decode_steps=run["metrics"]["decode_steps"], tokens=run["metrics"]["tokens"],
+        tokens_per_s=run["tokens_per_s"], wall_s=run["wall_s"],
+        generate_prefill_ms=gen["prefill_ms"],
+        generate_step_ms=gen["decode_ms"] / gen["decode_steps"],
+        generate_tokens_per_s=sum(r.max_new_tokens for r in group) / run["generate_wall_s"],
+        **info)
+    res["eager"] = graphed_against_eager(cfg, eng.params, trace, run, max_seq=RWKV_MAX_SEQ)
+    res["logits"] = graph_logits_check(eng, cfg, 64)
+    if not res["logits"]["bit_equal"]:
+        raise AssertionError(f"rwkv_serving: graphed logits differ from eager: {res['logits']}")
+    res["window"] = decode_window(eng, cfg, 64)
+    del eng, run
+    torch.cuda.empty_cache()
+    res["carry"] = rwkv_carry_parity(cfg)
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "rwkv_serving", **res})
+    return res
+
+
+def rwkv_carry_parity(cfg) -> dict:
+    """rwkv6-7b at full width in fp32 (TF32 off), ``RWKV_CARRY_LAYERS``
+    layers: for each prompt length n, a prefill of n + 1 tokens against a
+    prefill of n tokens and one decode step from its carries (the state,
+    the two token shifts), layer by layer from the same input: the decoded
+    token's output must be within ``LAYER_REL`` of the larger prefill's
+    largest output at that position.  Lengths that are not multiples of 32
+    put a remainder chunk at the end."""
+    from repro_torch.models import model_specs
+    from repro_torch.models.common import init_params
+    from repro_torch.models.model import _decoder, _embed_tokens
+    from repro_torch.models.transformer import _at, apply_layer_decode, apply_layer_prefill
+
+    c = dataclasses.replace(cfg, num_layers=RWKV_CARRY_LAYERS, param_dtype="float32",
+                            compute_dtype="float32")
+    params = init_params(model_specs(c), seed=2, device="cuda")
+    dec = _decoder(c)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    with torch.inference_mode():
+        for n in RWKV_CARRY_LENGTHS:
+            tokens = torch.randint(0, c.vocab_size, (1, n + 1), generator=gen, device="cuda")
+            positions = torch.arange(n + 1, device="cuda")
+            x = _embed_tokens(c, params, tokens)
+            rel = []
+            for group, key, r, d, lp in dec._layers(params["decoder"]):
+                full, _, _ = apply_layer_prefill(c, d, lp, x, positions, None, 0.0)
+                _, cache, _ = apply_layer_prefill(c, d, lp, x[:, :n], positions[:n], None, 0.0)
+                step, _ = apply_layer_decode(c, d, lp, x[:, n:], cache, n, 0.0)
+                want = full[:, n:]
+                rel.append(((step - want).abs().max() / want.abs().max()).item())
+                if not torch.isfinite(step).all() or not rel[-1] <= LAYER_REL:
+                    raise AssertionError(f"rwkv carry after {n} tokens, layer {len(rel) - 1}: "
+                                         f"largest difference {rel[-1]:.3e} of the largest "
+                                         "output")
+                x = full
+            out[n] = rel
+    del params
+    torch.cuda.empty_cache()
+    return dict(layers=RWKV_CARRY_LAYERS, dtype="float32", limit=LAYER_REL, layer_rel_err=out,
+                max_layer_rel_err=max(max(v) for v in out.values()))
+
+
+def paged_layout_phase(name, cfg, pool_pages, contiguous: bool) -> dict:
+    """``cfg`` at full size in bf16 with random seeded weights, paged with
+    the prefix cache (batch 8, max_seq 4096, page 16, ``pool_pages``),
+    graphed: the 16-request trace of ``paged_serving`` (8 sharing a
+    1024-token prefix).  Held as there (prefix hits prefill no more than
+    their suffix; no page held after drain; none used after flush); then
+    an eager paged engine serves the trace with identical tokens, and one
+    step's logits through the graph are bit-equal to the eager step's.  With
+    ``contiguous`` a contiguous engine (graphed) serves it too: its tokens
+    are reported beside the paged ones, and each prefix miss's first token
+    must be the same (the same B=1 prefill); then both again where no
+    expert drops a token (``layouts_without_drops``).  Reported: prime ms of misses
+    and hits against their bounds, step ms against the all-weights bound
+    and the active-weights one, tokens/s, ``pool_stats()``,
+    ``audit_pages()``, the pairs the expert capacity dropped in one decode
+    step and one prefill, the device idle share of 8 decode steps, and the
+    peak GB of the phase."""
+    from repro_torch.models import count_params, model_specs
+    from repro_torch.models.common import init_params, tree_leaves
+    from repro_torch.serving import ServingEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(model_specs(cfg), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    work = serving_work(cfg)
+    trace = paged_trace(cfg.vocab_size, PAGED_PREFIX, PAGED_SUFFIXES, PAGED_UNRELATED,
+                        PAGED_NEW, PAGED_LONG_NEW, seed=5)
+    kw = dict(max_seq=PAGED_MAX_SEQ, paged=True, page_size=16, pool_pages=pool_pages)
+    eng = ServingEngine(cfg, params, batch_size=8, **kw)
+    reset_counts()
+    run = serve_trace(eng, trace)
+    launches = read_counts()
+    summary = paged_run_summary(cfg, work, run, trace)
+    summary.update(check_paged_run(eng, run, trace, PAGED_PREFIX, name))
+    if summary["prefix_hits"] != summary["shared_prefix_requests"] - 1:
+        raise AssertionError(f"{name}: {summary['prefix_hits']} prefix hits, expected "
+                             f"{summary['shared_prefix_requests'] - 1}")
+    kv = summary["mean_cached_tokens_per_step"]
+    res = dict(arch=cfg.name, layers=cfg.num_layers, params=count_params(cfg),
+               active_params=count_params(cfg, active_only=True), init_s=init_s, batch=8,
+               max_seq=PAGED_MAX_SEQ, page_size=16, pool_pages=eng.pool_pages,
+               pool_bytes=sum(t.numel() * t.element_size()
+                              for path, t in tree_leaves(eng._cb_cache)
+                              if tree_get(eng._flags, path)),
+               kv_token_bytes=work["kv_token_bytes"], requests=len(trace), launches=launches,
+               graphed=summary,
+               step_bound_ms_active=decode_bound_ms(work, kv, active=True),
+               logits=graph_logits_check(eng, cfg, 64))
+    if not res["logits"]["bit_equal"]:
+        raise AssertionError(f"{name}: graphed logits differ from eager: {res['logits']}")
+    if cfg.moe is not None:
+        res["dropped"] = moe_drops(eng, cfg)
+    res["window"] = decode_window(eng, cfg, 64)
+    res["graphs"] = ["contiguous" if k is None else k for k in eng.graph_capture_ms]
+    del eng
+    torch.cuda.empty_cache()
+    res["eager"] = graphed_against_eager(cfg, params, trace, run, **kw)
+    if contiguous:
+        other = ServingEngine(cfg, params, batch_size=8, max_seq=PAGED_MAX_SEQ)
+        crun = serve_trace(other, trace)
+        for (rid, prompt, _, _), a, rp, rc in zip(trace, run["admissions"], run["requests"],
+                                                  crun["requests"]):
+            if a["tokens"] == len(prompt) and rp.generated[0] != rc.generated[0]:
+                raise AssertionError(f"{name}: prefix miss {rid} gave first token "
+                                     f"{rp.generated[0]}, the contiguous engine "
+                                     f"{rc.generated[0]}")
+        res["contiguous"] = dict(
+            step_ms=crun["step_ms"], step_ms_median=crun["step_ms_median"],
+            tokens_per_s=crun["tokens_per_s"],
+            prime_ms=crun["metrics"]["prefill_ms"] / len(trace),
+            token_agreement_bf16=token_agreement(run["requests"], crun["requests"]),
+            tokens_side_by_side={rid: [rp.generated, rc.generated] for (rid, *_), rp, rc in
+                                 zip(trace, run["requests"], crun["requests"])})
+        del other, crun
+        res["contiguous"]["no_drops"] = layouts_without_drops(cfg, params, trace, kw)
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": name, **res})
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def layouts_without_drops(cfg, params, trace, paged_kw) -> dict:
+    """The paged and the contiguous engine (graphed) on ``trace`` again, at
+    a ``capacity_factor`` of E / k, where every expert's capacity holds
+    every token of a call, so no (token, expert) pair drops (held, by
+    ``moe_drops``) and each token's output depends on it alone.  Each
+    prefix miss's first token must be the same in both (the same B=1
+    prefill).  Where a request's tokens part, ``divergence`` reads the two
+    candidates off the full forward (the decompressed train path, no drops
+    either): their gaps to its top logit and their ranks, which must be
+    below ``LAYOUT_RANK`` (a wrong page or position picks a token from
+    anywhere in the vocabulary).  Reported: the capacity factor, the drops,
+    the share of tokens that agree, the requests that agree whole, and
+    each parting."""
+    from repro_torch.serving import ServingEngine
+
+    moe = cfg.moe
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+    runs = {}
+    for layout, kw in (("paged", paged_kw), ("contiguous", dict(max_seq=PAGED_MAX_SEQ))):
+        eng = ServingEngine(cfg, params, batch_size=8, **kw)
+        runs[layout] = serve_trace(eng, trace)
+        if layout == "paged":
+            dropped = moe_drops(eng, cfg)
+        del eng
+        torch.cuda.empty_cache()
+    if any(d["dropped"] for d in dropped.values()):
+        raise AssertionError(f"capacity factor {cfg.moe.capacity_factor}: pairs dropped: "
+                             f"{dropped}")
+    partings = []
+    for (rid, prompt, _, _), a, rp, rc in zip(trace, runs["paged"]["admissions"],
+                                              runs["paged"]["requests"],
+                                              runs["contiguous"]["requests"]):
+        if rp.generated == rc.generated:
+            continue
+        d = dict(id=rid, prefix_hit=a["tokens"] < len(prompt),
+                 **divergence(cfg, params, prompt, rp, rc))
+        d["gaps_to_top"] = [d["full_forward_top3"][0][1] - x for x in d["full_forward_logits"]]
+        partings.append(d)
+        if (d["at"] == 0 and not d["prefix_hit"]) or max(d["full_forward_ranks"]) >= LAYOUT_RANK:
+            raise AssertionError(f"no drops: {rid}'s paged and contiguous tokens part at no "
+                                 f"near-tie: {d}")
+    return dict(capacity_factor=cfg.moe.capacity_factor, dropped=dropped,
+                token_agreement_bf16=token_agreement(runs["paged"]["requests"],
+                                                     runs["contiguous"]["requests"]),
+                requests_identical=len(trace) - len(partings), partings=partings,
+                max_gap_to_top=max((max(d["gaps_to_top"]) for d in partings), default=0.0),
+                max_rank=max((max(d["full_forward_ranks"]) for d in partings), default=0))
+
+
+def moe_train_phase(k1) -> dict:
+    """moonshot-v1-16b-a3b at full width cut to ``MOE_TRAIN_LAYERS`` of 48
+    (the dense first layer and one MoE layer), bf16 params, fp32 moments,
+    ``use_pallas=True``, the config's ``remat_policy`` (``"full"``):
+    ``MOE_TRAIN_STEPS`` steps of 8 x 4096 tokens in 4 microbatches.  K1
+    must launch once per attention layer and microbatch, and again for the
+    MoE block's recompute (the dense first layer sits outside the repeated
+    cycle, which alone is rematerialised, as in the reference); the MoE aux
+    loss must be finite and positive in every step; every layer's experts
+    and router must receive a gradient.  The 6·N_active·D/peak floor is
+    reported beside the step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), num_layers=MOE_TRAIN_LAYERS,
+                              use_pallas=True)
+    assert cfg.remat_policy == "full" and cfg.microbatches == 4
+    prefix = cfg.moe.first_moe_layer
+    per_micro = prefix + 2 * (MOE_TRAIN_LAYERS - prefix)
+    res = train_phase(cfg, k1, per_micro * cfg.microbatches * MOE_TRAIN_STEPS,
+                      lambda path: path.rsplit("/", 1)[-1] in ("router", "w_gate", "w_down"),
+                      steps=MOE_TRAIN_STEPS, name="moe_train", profile=False)
+    aux = [r["moe_aux"] for r in res["steps"]]
+    if not all(math.isfinite(a) and a > 0 for a in aux):
+        raise AssertionError(f"moe_train: moe_aux {aux}")
+    active = count_params(cfg, active_only=True)
+    floor_ms = 6 * active * TRAIN_BATCH * TRAIN_SEQ / PEAK_BF16_FLOPS * 1e3
+    res.update(active_params=active, floor_ms=floor_ms, moe_aux=aux,
+               k1_per_step=res["launches"]["flash_attention"] // MOE_TRAIN_STEPS)
+    emit({"phase": "moe_train summary", **{k: res[k] for k in (
+        "active_params", "floor_ms", "moe_aux", "k1_per_step", "peak_mem_gb")},
+          "step_ms": [r["step_ms"] for r in res["steps"]],
+          "tokens_per_s": [r["tokens_per_s"] for r in res["steps"]]})
     return res
 
 
@@ -1721,8 +2146,8 @@ def parity_phase(fa, cfg) -> dict:
         x = frames + _sinusoid(pos, cfg.d_model)
         for r in range(enc.reps):
             lp = _at(params["encoder"]["blocks"]["0"], r)
-            plain = apply_layer_train(plain_cfg, ld, lp, x, pos, None, True)
-            kern = apply_layer_train(kern_cfg, ld, lp, x, pos, None, True)
+            plain, _ = apply_layer_train(plain_cfg, ld, lp, x, pos, None, 0.0, True)
+            kern, _ = apply_layer_train(kern_cfg, ld, lp, x, pos, None, 0.0, True)
             assert torch.isfinite(kern).all(), f"layer {r}: non-finite kernel output"
             layer_err.append((plain - kern).abs().max().item())
             x = plain
@@ -2239,6 +2664,12 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     timed("paged_parity", paged_parity_phase)
+    rwkv_serving = timed("rwkv_serving", rwkv_serving_phase,
+                         dataclasses.replace(get_config("rwkv6-7b"), use_pallas=True))
+    moe_serving = timed("moe_serving", paged_layout_phase, "moe_serving", dataclasses.replace(
+        get_config("moonshot-v1-16b-a3b"), use_pallas=True), MOE_POOL_PAGES, False)
+    mla_serving = timed("mla_serving", paged_layout_phase, "mla_serving", dataclasses.replace(
+        get_config("deepseek-v2-236b"), num_layers=MLA_LAYERS, use_pallas=True), None, True)
     # the train phases keep every activation (no recompute), as they did before
     # the port had remat, so their launch counts and series stay comparable
     rwkv_cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=TRAIN_LAYERS,
@@ -2266,6 +2697,7 @@ def main() -> int:
           k2.rglru_scan, n_rec)
     train_substrate = timed("train_substrate", train_substrate_phase, k3.rwkv6_scan)
     dense = timed("dense_train", dense_train_phase, fa.flash_attention)
+    moe_train = timed("moe_train", moe_train_phase, fa.flash_attention)
     emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - t0})
     paged_runs = paged_serving["runs"]
     emit({"phase": "summary", "internlm2-20b serving": {
@@ -2293,6 +2725,30 @@ def main() -> int:
             "tokens_per_s": [r["tokens_per_s"] for r in run["steps"]],
             "peak_mem_gb": run["peak_mem_gb"], "peak_fwd_bwd_gb": run["peak_fwd_bwd_gb"]}
             for policy, run in dense.items()},
+        "rwkv6-7b serving": {k: rwkv_serving[k] for k in (
+            "prime_ms", "prime_bound_ms_mean", "step_ms", "step_ms_median", "step_bound_ms",
+            "tokens_per_s", "peak_mem_gb")} | {
+            "eager_step_ms_median": rwkv_serving["eager"]["step_ms_median"],
+            "window_idle_share_unprofiled": rwkv_serving["window"].get(
+                "device_idle_share_unprofiled", "not measured"),
+            "carry_max_layer_rel_err": rwkv_serving["carry"]["max_layer_rel_err"]},
+        **{f"{r['arch']} {name}": {k: r["graphed"][k] for k in (
+            "prime_ms_miss_mean", "prime_ms_hit_mean", "step_ms", "step_ms_median",
+            "step_bound_ms", "tokens_per_s")} | {
+            "step_bound_ms_active": r["step_bound_ms_active"],
+            "eager_step_ms_median": r["eager"]["step_ms_median"],
+            "dropped": r.get("dropped"), "peak_mem_gb": r["peak_mem_gb"],
+            **({"token_agreement_bf16": r["contiguous"]["token_agreement_bf16"],
+                "token_agreement_bf16_no_drops":
+                    r["contiguous"]["no_drops"]["token_agreement_bf16"]}
+               if "contiguous" in r else {}),
+            "window_idle_share_unprofiled": r["window"].get("device_idle_share_unprofiled",
+                                                            "not measured")}
+           for name, r in (("moe_serving", moe_serving), ("mla_serving", mla_serving))},
+        "moonshot-v1-16b-a3b moe_train": {
+            "step_ms": [r["step_ms"] for r in moe_train["steps"]],
+            "tokens_per_s": [r["tokens_per_s"] for r in moe_train["steps"]],
+            **{k: moe_train[k] for k in ("floor_ms", "moe_aux", "k1_per_step", "peak_mem_gb")}},
         "k2": {k: k2_res[k] for k in ("kernel_ms", "bound_ms", "copy_ceiling_ms",
                                       "kernel_ms_prefill", "bound_ms_prefill",
                                       "copy_ceiling_ms_prefill")},
@@ -2308,6 +2764,7 @@ def main() -> int:
             for arch, g in graphs.items() for layout, r in g["layouts"].items()},
         "serving_substrate": {arch: {
             "divergence": [q["divergence"] for q in r["requests"]],
+            "backlog_tokens": [q["backlog_tokens"] for q in r["requests"]],
             "total_ms": [q["total_ms"] for q in r["requests"]],
             "predicted_total_ms": [q["predicted_total_ms"] for q in r["requests"]]}
             for arch, r in substrate.items()}})
@@ -2321,7 +2778,8 @@ def main() -> int:
                    "paged_whisper_contiguous": paged_whisper["k1_launches_contiguous"],
                    "serving_substrate": substrate["whisper-large-v3"]["k1_launches"],
                    **{f"dense_train {policy}": run["launches"]["flash_attention"]
-                      for policy, run in dense.items()}}
+                      for policy, run in dense.items()},
+                   "moe_train": moe_train["launches"]["flash_attention"]}
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -57,8 +57,9 @@ def _chunk_body(state, rc, kc, vc, lwc, u):
 
 
 def chunk_scan(r, k, v, lw, u, state, chunk: int):
-    """Chunked recurrence from ``state`` (B,H,hd,hd) fp32; S % chunk == 0.
-    Returns (y in r's dtype, final state).  Under autograd each chunk is
+    """Chunked recurrence from ``state`` (B,H,hd,hd) fp32, in chunks of
+    ``chunk`` tokens, the last one the remainder when ``chunk`` does not
+    divide S.  Returns (y in r's dtype, final state).  Under autograd each chunk is
     recomputed in backward (the reference's ``jax.checkpoint(body)``): the
     pairwise block dwarfs r, k and v."""
     u = u.float()

@@ -42,6 +42,7 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq: int, device=None,
     """Train ``cfg`` for ``steps`` steps on ``device`` (default: the card).
 
     Returns the final state and one record per step run: loss, grad_norm,
+    moe_aux (the MoE load-balance loss; 0 without experts),
     step_ms (wall time of the step, synchronized with the device), tokens/s
     and the peak device memory so far (GB, on a card)."""
     dev = resolve_device(device)
@@ -72,6 +73,7 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq: int, device=None,
                 torch.cuda.synchronize(dev)
             step_ms = (time.perf_counter() - t0) * 1e3
             rec = dict(step=i, loss=vals["loss"], grad_norm=vals["grad_norm"],
+                       moe_aux=vals["moe_aux"],
                        step_ms=step_ms, tokens_per_s=batch_size * seq / (step_ms / 1e3))
             if dev.type == "cuda":
                 rec["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9

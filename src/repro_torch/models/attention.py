@@ -220,6 +220,20 @@ def decode_attention(cfg, p: dict, x, cache: dict, pos, *,
     return out_proj(p, o), {"k": k_cache, "v": v_cache}
 
 
+def write_pool_rows(pool, pid, off, values) -> None:
+    """``pool[pid[b], off[b]] = values[b]`` for every batch row b, in place.
+    Rows that share a slot — dead rows all write the null page — write the
+    value of the last of them, as a scatter that runs the rows in order
+    would, so the slot holds the same bits whatever order the card runs the
+    writes in.  Under MoE capacity the dead rows' null-page reads reach the
+    live rows' routing, so that order would otherwise show in their
+    tokens."""
+    same = (pid[:, None] == pid[None, :]) & (off[:, None] == off[None, :])
+    rows = torch.arange(pid.shape[0], device=pid.device)
+    last = torch.where(same, rows[None, :], -1).amax(1)
+    pool[pid, off] = values[last].to(pool.dtype)
+
+
 def paged_decode_attention(cfg, p: dict, x, cache: dict, pos, tables, *,
                            page_size: int):
     """One-token decode against a block-granular paged KV pool.
@@ -245,8 +259,8 @@ def paged_decode_attention(cfg, p: dict, x, cache: dict, pos, tables, *,
     b = torch.arange(B, device=x.device)
     pid = tables[b, pos // page_size]             # (B,) write page per row
     off = pos % page_size
-    k_pool[pid, off] = k_new[:, 0].to(k_pool.dtype)
-    v_pool[pid, off] = v_new[:, 0].to(v_pool.dtype)
+    write_pool_rows(k_pool, pid, off, k_new[:, 0])
+    write_pool_rows(v_pool, pid, off, v_new[:, 0])
     K, hd = k_pool.shape[-2], k_pool.shape[-1]
     T = tables.shape[1] * page_size
     k = k_pool[tables].reshape(B, T, K, hd)       # gather through the table

@@ -72,6 +72,13 @@ def tree_from_paths(template, values: dict, prefix: str = ""):
     return values[prefix]
 
 
+#: the most elements drawn at once in fp32 for one leaf (a 32 GiB draw); a
+#: larger leaf (moonshot-v1-16b-a3b's stacked experts, 8.7 G elements each) is
+#: drawn slice by slice along its leading axis, so that its draw and the rest
+#: of the parameters fit one 80 GB card together
+_MAX_DRAW = 1 << 33
+
+
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
@@ -86,8 +93,14 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
     std = spec.scale / math.sqrt(max(fan_in, 1))
     if spec.init == "small":
         std = 0.02 * spec.scale
-    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
-    return x.mul_(std).to(spec.dtype)        # in place: one fp32 copy at a time
+    if math.prod(spec.shape) <= _MAX_DRAW:
+        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
+        return x.mul_(std).to(spec.dtype)    # in place: one fp32 copy at a time
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    for i in range(spec.shape[0]):
+        out[i] = torch.randn(spec.shape[1:], generator=gen, dtype=torch.float32,
+                             device=device).mul_(std)
+    return out
 
 
 def init_params(specs, seed: int = 0, device=None):
@@ -183,10 +196,15 @@ def remat_policy(name: str):
     """Config remat names (the reference's) -> what to wrap a block with:
     ``None`` for no recompute, else the ``context_fn`` of
     ``torch.utils.checkpoint.checkpoint`` (``"full"`` recomputes everything,
-    the selective ones save their products' outputs)."""
+    the selective ones save their products' outputs; ``"moe"`` is
+    ``"full"`` on one device, until A9's sharded MoE names what it saves)."""
     if name == "nothing":
         return None
-    if name == "full":
+    if name in ("full", "moe"):
+        # "moe" saves only the tensors named ``moe_bufe`` / ``moe_h``, which
+        # the reference names in its sharded dispatch alone
+        # (``distributed/sp_moe.py``, ROADMAP A9): on one device nothing
+        # carries those names, so it recomputes everything, as "full"
         return noop_context_fn
     if name in _SAVED_PRODUCTS:
         saved = _SAVED_PRODUCTS[name]
@@ -195,9 +213,6 @@ def remat_policy(name: str):
             return (CheckpointPolicy.MUST_SAVE if op in saved
                     else CheckpointPolicy.PREFER_RECOMPUTE)
         return functools.partial(create_selective_checkpoint_contexts, policy)
-    if name == "moe":
-        raise NotImplementedError("remat policy 'moe' saves the MoE exchange buffers, and "
-                                  "MoE is not ported: ROADMAP A8.3")
     raise ValueError(f"unknown remat policy {name!r}")
 
 

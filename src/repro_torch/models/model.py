@@ -2,7 +2,7 @@
 PyTorch port of ``repro/models/model.py``.
 
 - :func:`model_specs`        — ParamSpec tree for an arch (the reference's layout)
-- :func:`loss_fn`            — full train loss (chunked cross-entropy; MoE aux 0)
+- :func:`loss_fn`            — full train loss (chunked cross-entropy + MoE aux)
 - :func:`build_prefill_step` / :func:`build_decode_step` / :func:`decode_cache`
 - paged serving: :func:`decode_cache_paged`, :func:`paged_cache_flags`,
   :func:`paged_support`, :func:`build_prefill_past_step` (suffix-only
@@ -52,7 +52,7 @@ def model_specs(cfg) -> dict:
 def count_params(cfg, active_only: bool = False, include_embed: bool = True) -> int:
     """Analytic N, by the reference's rules: ``include_embed=False`` leaves
     out every leaf with a vocabulary axis; ``active_only`` counts an expert
-    leaf at ``top_k / num_experts`` (no ported arch has experts yet)."""
+    leaf at ``top_k / num_experts``."""
     total = 0
     m = cfg.moe
     for _, spec in cm.tree_leaves(model_specs(cfg)):
@@ -91,7 +91,7 @@ def _encode(cfg, params, frames, dtype):
     enc_x = frames.to(dtype)
     enc_pos = torch.arange(enc_x.shape[1], device=enc_x.device)
     enc_x = enc_x + _sinusoid(enc_pos, cfg.d_model).to(dtype)
-    ctx = _encoder(cfg).train(params["encoder"], enc_x, enc_pos)
+    ctx, _ = _encoder(cfg).train(params["encoder"], enc_x, enc_pos)
     return cm.apply_norm(cfg, params["enc_norm"], ctx)
 
 
@@ -143,16 +143,15 @@ AUX_WEIGHT = 0.01
 
 
 def loss_fn(cfg, params, batch):
-    """batch: {tokens, labels[, frames]} → (loss, metrics).  The MoE
-    auxiliary loss is 0 until MoE is ported (ROADMAP A8.3)."""
+    """batch: {tokens, labels[, frames]} → (loss, metrics): the
+    cross-entropy plus ``AUX_WEIGHT`` times the MoE load-balance loss."""
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed_tokens(cfg, params, tokens)
     x, ctx = _context(cfg, params, batch, x, positions)
-    feats = _decoder(cfg).train(params["decoder"], x, positions, ctx)
+    feats, aux = _decoder(cfg).train(params["decoder"], x, positions, ctx)
     feats = cm.apply_norm(cfg, params["final_norm"], feats)
     xent = chunked_xent(cfg, feats, _logit_kernel(cfg, params), batch["labels"])
-    aux = torch.zeros((), dtype=torch.float32, device=xent.device)
     loss = xent + AUX_WEIGHT * aux
     return loss, {"xent": xent, "moe_aux": aux}
 
@@ -163,7 +162,7 @@ def full_forward_logits(cfg, params, batch):
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed_tokens(cfg, params, tokens)
     x, ctx = _context(cfg, params, batch, x, positions)
-    feats = _decoder(cfg).train(params["decoder"], x, positions, ctx)
+    feats, _ = _decoder(cfg).train(params["decoder"], x, positions, ctx)
     return _logits(cfg, params, feats)
 
 
@@ -213,8 +212,8 @@ def decode_cache(cfg, batch: int, seq_len: int, device=None):
 
 def decode_cache_paged(cfg, batch: int, seq_len: int, pool_pages: int, page_size: int,
                        device=None):
-    """Decode cache with attn leaves in ``(pool_pages+1, page_size, K, hd)``
-    pool layout (row 0 = null page); resident leaves stay ``(batch, ...)``."""
+    """Decode cache with attn and mla leaves in ``(pool_pages+1, page_size,
+    ...)`` pool layout (row 0 = null page); resident leaves stay ``(batch, ...)``."""
     return _decoder(cfg).paged_cache(batch, seq_len, pool_pages, page_size,
                                      cm.resolve_device(device))
 

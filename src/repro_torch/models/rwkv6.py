@@ -8,10 +8,13 @@ Recurrence per head (state S ∈ R^{hd×hd}, fp32):
 
 with per-channel, per-token decay  w_t = exp(-exp(w0 + lora_w(x̃_t))) ∈ (0,1).
 
-Training uses the chunked parallel form (chunk length ``CHUNK``, the math of
-``kernels/rwkv6/ref.py::chunk_scan``), or K3 where the reference's gate
-allows.  The single-token ``rwkv_decode`` waits for the rwkv serving slice
-(ROADMAP A8.2).
+Training and prefill use the chunked parallel form (chunk length ``CHUNK``,
+the math of ``kernels/rwkv6/ref.py::chunk_scan``), or K3 where the
+reference's gate allows; decode runs the recurrence one token at a time
+(``rwkv_decode``).  A sequence of S tokens with S % CHUNK != 0 and
+S > CHUNK runs ⌊S/CHUNK⌋ chunks and then one remainder chunk, carrying the
+state across; the reference falls to chunks of one token there (the same
+recurrence, rounded differently in fp32: ROADMAP C).
 """
 from __future__ import annotations
 
@@ -79,10 +82,10 @@ def _projections(cfg, p, x, x_prev):
 
 def _chunk_scan(r, k, v, lw, u, state):
     """Chunked linear recurrence.  r,k,v: (B,S,H,hd) compute dtype;
-    lw: (B,S,H,hd) fp32; u: (H,hd); state: (B,H,hd,hd) fp32."""
-    S = r.shape[1]
-    C = CHUNK if S % CHUNK == 0 else (S if S < CHUNK else 1)
-    y, state = chunk_scan(*(t.transpose(1, 2) for t in (r, k, v, lw)), u, state, C)
+    lw: (B,S,H,hd) fp32; u: (H,hd); state: (B,H,hd,hd) fp32.  Chunks of
+    ``CHUNK`` tokens, the last one the remainder (one chunk of S when
+    S < CHUNK, as in the reference)."""
+    y, state = chunk_scan(*(t.transpose(1, 2) for t in (r, k, v, lw)), u, state, CHUNK)
     return y.transpose(1, 2), state
 
 
@@ -123,3 +126,17 @@ def rwkv_time_mix(cfg, p: dict, x, x_prev=None, state=None,
     else:
         y, state = _chunk_scan(r, k, v, lw, p["u"].float(), state)
     return _readout(cfg, p, y, g, x.dtype), state, x[:, -1]
+
+
+def rwkv_decode(cfg, p: dict, x1, state, x_prev):
+    """Single-token decode. x1: (B,1,d); state: (B,H,hd,hd) fp32; x_prev: (B,d).
+    Returns (out, new state, x1[:, 0])."""
+    r, k, v, g, lw = _projections(cfg, p, x1, x_prev[:, None, :])
+    rf, kf, vf = (t.float()[:, 0] for t in (r, k, v))               # (B,H,hd)
+    w = torch.exp(lw[:, 0])                                         # (B,H,hd)
+    u = p["u"].float()
+    kv = kf[..., :, None] * vf[..., None, :]                        # (B,H,hd,hd)
+    y = torch.einsum("bhd,bhde->bhe", rf, state + u[None, :, :, None] * kv)
+    state = state * w[..., None] + kv
+    out = _readout(cfg, p, y[:, None].to(x1.dtype), g, x1.dtype)
+    return out, state, x1[:, 0]

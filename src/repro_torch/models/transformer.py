@@ -14,19 +14,20 @@ Three modes share the layer application: ``train`` (full sequence, no
 cache), ``prefill`` (full sequence, or a suffix against a cached prefix;
 emits the decode cache) and ``decode`` (one token, updates the cache in
 place: the contiguous cache or, for paged serving, a page pool read
-through per-row page tables).  The port has, in every mode, the
-``attn`` mixer with a dense FFN and the whisper decoder's cross-attention,
-and the recurrentgemma hybrid's ``recurrent`` (RG-LRU) and ``local_attn``
-(sliding window, ring-buffer cache) mixers; and the ``rwkv`` mixer with the
-``rwkv_cm`` channel mix in ``train`` only.  Every other mixer or FFN kind,
-and rwkv serving, raises ``NotImplementedError`` naming its ROADMAP item.
-The MoE auxiliary loss the reference threads through is therefore always
-zero here and is not carried.
+through per-row page tables).  Every mode has the mixers ``attn`` (with
+the whisper decoder's cross-attention), ``local_attn`` (sliding window,
+ring-buffer cache), ``recurrent`` (RG-LRU), ``rwkv`` (its state and
+token-shift carries) and ``mla`` (latent cache, absorbed decode), and the
+FFNs ``dense``, ``moe`` and ``rwkv_cm``.  The ``cross_only`` mixer
+(llama-3.2-vision-90b) raises ``NotImplementedError`` naming its ROADMAP
+item.  The MoE auxiliary loss is threaded through every mode, as in the
+reference; ``train`` returns it, ``prefill`` and ``decode`` drop it.
 ``train`` wraps each repetition of the cycle in ``cfg.remat_policy`` as
-the reference does (``common.maybe_remat``: ``"full"`` recomputes the block
-in backward, ``"dots"`` / ``"dots_no_batch"`` keep its products' outputs,
-``"nothing"`` keeps every activation), when autograd records; ``prefill``
-and ``decode`` run without autograd in the port, so they are not wrapped.
+the reference does (``common.maybe_remat``: ``"full"`` and, on one device,
+``"moe"`` recompute the block in backward, ``"dots"`` / ``"dots_no_batch"``
+keep its products' outputs, ``"nothing"`` keeps every activation), when
+autograd records; ``prefill`` and ``decode`` run without autograd in the
+port, so they are not wrapped.
 """
 from __future__ import annotations
 
@@ -40,6 +41,8 @@ from repro_torch.configs.base import torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 
@@ -53,26 +56,15 @@ class LayerDef:
 
 #: layer kinds not yet ported -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "mla": "ROADMAP A8.3 (deepseek-v2-236b)",
-    "moe": "ROADMAP A8.3 (deepseek-v2-236b, moonshot-v1-16b-a3b)",
     "cross_only": "ROADMAP A8.5 (llama-3.2-vision-90b)",
 }
 
 
-#: layer kinds ported for ``train`` only -> the ROADMAP item that serves them
-_SERVING_NOT_PORTED = {
-    "rwkv": "ROADMAP A8.2 (rwkv6-7b serving: rwkv_decode and the prefill state)",
-    "rwkv_cm": "ROADMAP A8.2 (rwkv6-7b serving: the channel-mix token-shift cache)",
-}
-
-
-def _require_ported(ld: LayerDef, serving: bool = False) -> None:
-    missing = dict(_NOT_PORTED, **(_SERVING_NOT_PORTED if serving else {}))
+def _require_ported(ld: LayerDef) -> None:
     for kind in (ld.mixer, ld.ffn):
-        if kind in missing:
-            what = "for serving" if kind in _SERVING_NOT_PORTED else "yet"
+        if kind in _NOT_PORTED:
             raise NotImplementedError(
-                f"layer kind {kind!r} is not ported {what}: {missing[kind]}")
+                f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
 
 
 def build_layer_defs(cfg) -> List[LayerDef]:
@@ -123,14 +115,20 @@ def layer_specs(cfg, ld: LayerDef) -> dict:
         s["mixer"] = rwkv_mod.rwkv_specs(cfg)
     elif ld.mixer == "recurrent":
         s["mixer"] = rglru_mod.rglru_specs(cfg)
+    elif ld.mixer == "mla":
+        s["mixer"] = mla_mod.mla_specs(cfg)
     else:                                   # attn | local_attn
         s["mixer"] = attn.attn_specs(cfg)
     if ld.cross:
         s["ln_cross"] = cm.norm_spec(cfg, cfg.d_model)
         s["cross"] = attn.attn_specs(cfg, cross=True)
     s["ln2"] = cm.norm_spec(cfg, cfg.d_model)
-    s["ffn"] = (ffn_mod.rwkv_channel_mix_specs(cfg) if ld.ffn == "rwkv_cm"
-                else ffn_mod.ffn_specs(cfg))
+    if ld.ffn == "rwkv_cm":
+        s["ffn"] = ffn_mod.rwkv_channel_mix_specs(cfg)
+    elif ld.ffn == "moe":
+        s["ffn"] = moe_mod.moe_specs(cfg)
+    else:
+        s["ffn"] = ffn_mod.ffn_specs(cfg)
     return s
 
 
@@ -142,7 +140,7 @@ def stack_specs(tree, n: int):
 
 def layer_cache(cfg, ld: LayerDef, batch: int, seq_len: int, device) -> dict:
     """Zero decode cache for one layer."""
-    _require_ported(ld, serving=True)
+    _require_ported(ld)
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     pdt = torch_dtype(cfg.param_dtype)
 
@@ -153,6 +151,14 @@ def layer_cache(cfg, ld: LayerDef, batch: int, seq_len: int, device) -> dict:
         r = cfg.recurrent
         c = {"h": mk(batch, r.lru_width, dtype=torch.float32),
              "conv": mk(batch, r.conv_width - 1, r.lru_width, dtype=torch.float32)}
+    elif ld.mixer == "rwkv":
+        hd_r = cfg.rwkv.head_dim
+        c = {"s": mk(batch, cfg.num_heads, hd_r, hd_r, dtype=torch.float32),
+             "ts_tm": mk(batch, cfg.d_model), "ts_cm": mk(batch, cfg.d_model)}
+    elif ld.mixer == "mla":
+        a = cfg.mla
+        c = {"c_kv": mk(batch, seq_len, a.kv_lora_rank),
+             "k_rope": mk(batch, seq_len, a.qk_rope_head_dim)}
     else:
         # a local layer keeps a ring buffer of its window's latest positions
         slots = min(cfg.local_window, seq_len) if ld.mixer == "local_attn" else seq_len
@@ -174,26 +180,24 @@ def _at(tree, i: int):
     return cm.tree_map(lambda t: t[i], tree)
 
 
-#: cache leaves that page (global, unbounded-growth KV); every other leaf is
-#: *resident* — bounded per-row state (ring-buffer window, recurrent
-#: carries, precomputed cross K/V) that stays slot-granular.  The reference
-#: also pages ``mla``'s latents; that mixer is not ported (ROADMAP A8.3).
+#: cache leaves that page (global, unbounded-growth KV and MLA latents);
+#: every other leaf is *resident* — bounded per-row state (ring-buffer
+#: window, recurrent and rwkv carries, precomputed cross K/V) that stays
+#: slot-granular
 _PAGED_MIXER_LEAVES = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope")}
 
 
 def layer_cache_paged(cfg, ld: LayerDef, batch: int, seq_len: int,
                       pool_pages: int, page_size: int, device) -> dict:
     """Like :func:`layer_cache`, but pageable leaves take the pool layout
-    ``(pool_pages + 1, page_size, K, hd)`` — row 0 is the null page —
-    shared across batch rows through per-row page tables.  Resident leaves
-    keep their slot-granular ``(batch, ...)`` layout."""
+    ``(pool_pages + 1, page_size, ...)`` — row 0 is the null page — shared
+    across batch rows through per-row page tables.  Resident leaves keep
+    their slot-granular ``(batch, ...)`` layout."""
     c = layer_cache(cfg, ld, batch, seq_len, device)
-    if ld.mixer == "attn":
-        K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-        shape = (pool_pages + 1, page_size, K, hd)
-        pdt = torch_dtype(cfg.param_dtype)
-        c["k"] = torch.zeros(shape, dtype=pdt, device=device)
-        c["v"] = torch.zeros(shape, dtype=pdt, device=device)
+    pdt = torch_dtype(cfg.param_dtype)
+    for name in _PAGED_MIXER_LEAVES.get(ld.mixer, ()):
+        c[name] = torch.zeros((pool_pages + 1, page_size) + tuple(c[name].shape[2:]),
+                              dtype=pdt, device=device)
     return c
 
 
@@ -208,12 +212,23 @@ def layer_paged_flags(cfg, ld: LayerDef) -> dict:
 # layer application
 
 
-def apply_layer_train(cfg, ld, p, x, positions, ctx, bidirectional=False):
+def _ffn_apply(cfg, ld, p, x, aux):
+    """The dense or MoE FFN on ``x`` (the residual added); -> (x, aux)."""
+    h2 = cm.apply_norm(cfg, p["ln2"], x)
+    if ld.ffn == "moe":
+        out, a = moe_mod.moe_ffn(cfg, p["ffn"], h2)
+        return x + out, aux + a
+    return x + ffn_mod.ffn(cfg, p["ffn"], h2), aux
+
+
+def apply_layer_train(cfg, ld, p, x, positions, ctx, aux, bidirectional=False):
     h = cm.apply_norm(cfg, p["ln1"], x)
     if ld.mixer == "rwkv":
         out, _, _ = rwkv_mod.rwkv_time_mix(cfg, p["mixer"], h, want_state=False)
     elif ld.mixer == "recurrent":
         out, _ = rglru_mod.rglru_block(cfg, p["mixer"], h)
+    elif ld.mixer == "mla":
+        out = mla_mod.mla_attention(cfg, p["mixer"], h, positions)
     elif ld.mixer == "local_attn":
         out = attn.self_attention(cfg, p["mixer"], h, positions, window=cfg.local_window)
     else:
@@ -222,24 +237,31 @@ def apply_layer_train(cfg, ld, p, x, positions, ctx, bidirectional=False):
     if ld.cross:
         hc = cm.apply_norm(cfg, p["ln_cross"], x)
         x = x + attn.cross_attention(cfg, p["cross"], hc, attn.cross_kv(p["cross"], ctx))
-    h2 = cm.apply_norm(cfg, p["ln2"], x)
     if ld.ffn == "rwkv_cm":
+        h2 = cm.apply_norm(cfg, p["ln2"], x)
         prev = F.pad(h2, (0, 0, 1, 0))[:, :-1]          # token shift, zero at t=0
-        return x + ffn_mod.rwkv_channel_mix(cfg, p["ffn"], h2, prev)
-    return x + ffn_mod.ffn(cfg, p["ffn"], h2)
+        return x + ffn_mod.rwkv_channel_mix(cfg, p["ffn"], h2, prev), aux
+    return _ffn_apply(cfg, ld, p, x, aux)
 
 
-def apply_layer_prefill(cfg, ld, p, x, positions, ctx, past=None, past_len=0):
+def apply_layer_prefill(cfg, ld, p, x, positions, ctx, aux, past=None, past_len=0):
     """Train-path compute + emit the decode cache (sized to the prompt; the
-    caller right-pads it to max_seq).  ``past`` (prefix-cache reuse) carries
-    this layer's already-computed prefix K/V; only pageable mixers take it —
-    the engine gates prefix sharing to stacks made purely of those."""
+    caller right-pads it to max_seq); -> (x, cache, aux).  ``past``
+    (prefix-cache reuse) carries this layer's already-computed prefix K/V
+    or latents; only pageable mixers take it — the engine gates prefix
+    sharing to stacks made purely of those."""
     if past is not None and ld.mixer not in _PAGED_MIXER_LEAVES:
         raise ValueError(f"prefix reuse unsupported for mixer {ld.mixer!r}")
     h = cm.apply_norm(cfg, p["ln1"], x)
     if ld.mixer == "recurrent":
         out, (hf, conv) = rglru_mod.rglru_block(cfg, p["mixer"], h)
         cache = {"h": hf, "conv": conv}
+    elif ld.mixer == "rwkv":
+        out, state, last = rwkv_mod.rwkv_time_mix(cfg, p["mixer"], h)
+        cache = {"s": state, "ts_tm": last}
+    elif ld.mixer == "mla":
+        out, cache = mla_mod.mla_prefill(cfg, p["mixer"], h, positions, past=past,
+                                         past_len=past_len)
     else:
         window = cfg.local_window if ld.mixer == "local_attn" else None
         out, cache = attn.prefill_attention(cfg, p["mixer"], h, positions, window=window,
@@ -250,19 +272,36 @@ def apply_layer_prefill(cfg, ld, p, x, positions, ctx, past=None, past_len=0):
         ckv = attn.cross_kv(p["cross"], ctx)
         x = x + attn.cross_attention(cfg, p["cross"], hc, ckv)
         cache.update({"cross_k": ckv["k"], "cross_v": ckv["v"]})
-    h2 = cm.apply_norm(cfg, p["ln2"], x)
-    return x + ffn_mod.ffn(cfg, p["ffn"], h2), cache
+    if ld.ffn == "rwkv_cm":
+        h2 = cm.apply_norm(cfg, p["ln2"], x)
+        prev = F.pad(h2, (0, 0, 1, 0))[:, :-1]
+        cache["ts_cm"] = h2[:, -1]
+        return x + ffn_mod.rwkv_channel_mix(cfg, p["ffn"], h2, prev), cache, aux
+    x, aux = _ffn_apply(cfg, ld, p, x, aux)
+    return x, cache, aux
 
 
-def apply_layer_decode(cfg, ld, p, x, cache, pos, tables=None, page_size=None):
-    """x: (B,1,d). Updates ``cache`` in place; returns x.  With ``tables``
-    (paged serving) the attn leaves are a shared page pool read through
-    per-row page tables; resident leaves keep per-row state."""
+def apply_layer_decode(cfg, ld, p, x, cache, pos, aux, tables=None, page_size=None):
+    """x: (B,1,d). Updates ``cache`` in place; -> (x, aux).  With ``tables``
+    (paged serving) the attn and mla leaves are a shared page pool read
+    through per-row page tables; resident leaves keep per-row state."""
     h = cm.apply_norm(cfg, p["ln1"], x)
     if ld.mixer == "recurrent":
         out, hf, conv = rglru_mod.rglru_decode(cfg, p["mixer"], h, cache["h"], cache["conv"])
         cache["h"].copy_(hf)
         cache["conv"].copy_(conv)
+    elif ld.mixer == "rwkv":
+        out, state, last = rwkv_mod.rwkv_decode(cfg, p["mixer"], h, cache["s"],
+                                                cache["ts_tm"])
+        cache["s"].copy_(state)
+        cache["ts_tm"].copy_(last)
+    elif ld.mixer == "mla":
+        latents = {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"]}
+        if tables is not None:
+            out, _ = mla_mod.mla_paged_decode(cfg, p["mixer"], h, latents, pos, tables,
+                                              page_size=page_size)
+        else:
+            out, _ = mla_mod.mla_decode(cfg, p["mixer"], h, latents, pos)
     elif ld.mixer == "attn" and tables is not None:
         out, _ = attn.paged_decode_attention(cfg, p["mixer"], h,
                                              {"k": cache["k"], "v": cache["v"]}, pos,
@@ -276,8 +315,12 @@ def apply_layer_decode(cfg, ld, p, x, cache, pos, tables=None, page_size=None):
         hc = cm.apply_norm(cfg, p["ln_cross"], x)
         x = x + attn.cross_attention(cfg, p["cross"], hc,
                                      {"k": cache["cross_k"], "v": cache["cross_v"]})
-    h2 = cm.apply_norm(cfg, p["ln2"], x)
-    return x + ffn_mod.ffn(cfg, p["ffn"], h2)
+    if ld.ffn == "rwkv_cm":
+        h2 = cm.apply_norm(cfg, p["ln2"], x)
+        x = x + ffn_mod.rwkv_channel_mix(cfg, p["ffn"], h2, cache["ts_cm"][:, None])
+        cache["ts_cm"].copy_(h2[:, 0])
+        return x, aux
+    return _ffn_apply(cfg, ld, p, x, aux)
 
 
 # ---------------------------------------------------------------------------
@@ -350,42 +393,41 @@ class Stack:
 
     # -- forward ------------------------------------------------------------
     def train(self, p: dict, x, positions, ctx=None):
+        """-> (features, the summed MoE auxiliary loss; 0 without MoE)."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, d in enumerate(self.prefix):
-            x = apply_layer_train(cfg, d, p["prefix"][str(i)], x, positions, ctx,
-                                  self.bidirectional)
+            x, aux = apply_layer_train(cfg, d, p["prefix"][str(i)], x, positions, ctx, aux,
+                                       self.bidirectional)
         if self.reps:
-            def body(x, bp):
+            def body(x, aux, bp):
                 for i, d in enumerate(self.cycle):
-                    x = apply_layer_train(cfg, d, bp[str(i)], x, positions, ctx,
-                                          self.bidirectional)
-                return x
+                    x, aux = apply_layer_train(cfg, d, bp[str(i)], x, positions, ctx, aux,
+                                               self.bidirectional)
+                return x, aux
             if torch.is_grad_enabled():
                 body = cm.maybe_remat(body, cfg.remat_policy)
             for r in range(self.reps):
-                x = body(x, _at(p["blocks"], r))
+                x, aux = body(x, aux, _at(p["blocks"], r))
         for i, d in enumerate(self.suffix):
-            x = apply_layer_train(cfg, d, p["suffix"][str(i)], x, positions, ctx,
-                                  self.bidirectional)
-        return x
-
-    def _require_serving(self) -> None:
-        for d in self.defs:
-            _require_ported(d, serving=True)
+            x, aux = apply_layer_train(cfg, d, p["suffix"][str(i)], x, positions, ctx, aux,
+                                       self.bidirectional)
+        return x, aux
 
     def prefill(self, p: dict, x, positions, ctx=None, past=None, past_len=0):
         """``past`` (prefix-cache reuse): a cache-structured tree of this
-        stack's prefix K/V at length ``past_len``; only the suffix in ``x``
-        is computed and the emitted cache covers that suffix."""
-        self._require_serving()
+        stack's prefix K/V (or latents) at length ``past_len``; only the
+        suffix in ``x`` is computed and the emitted cache covers that
+        suffix.  The MoE auxiliary loss is dropped, as in the reference."""
         caches: dict = {}
         stacked: dict = {}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for group, key, r, d, lp in self._layers(p):
             lpast = None
             if past is not None:
                 lpast = past[group][key] if r is None else _at(past[group][key], r)
-            x, c = apply_layer_prefill(self.cfg, d, lp, x, positions, ctx,
-                                       past=lpast, past_len=past_len)
+            x, c, aux = apply_layer_prefill(self.cfg, d, lp, x, positions, ctx, aux,
+                                            past=lpast, past_len=past_len)
             if r is None:
                 caches.setdefault(group, {})[key] = c
             else:
@@ -399,8 +441,8 @@ class Stack:
     def decode(self, p: dict, x, caches: dict, pos, tables=None, page_size=None):
         """One token; ``caches`` is updated in place and returned.  With
         ``tables`` the pageable leaves are pools read through them."""
-        self._require_serving()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for group, key, r, d, lp in self._layers(p):
             c = caches[group][key] if r is None else _at(caches[group][key], r)
-            x = apply_layer_decode(self.cfg, d, lp, x, c, pos, tables, page_size)
+            x, aux = apply_layer_decode(self.cfg, d, lp, x, c, pos, aux, tables, page_size)
         return x, caches

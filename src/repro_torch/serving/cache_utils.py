@@ -14,9 +14,9 @@ rows of one cache into chosen batch slots of the shared decode cache.  It
 writes in place, which is what the reference's buffer donation buys it.
 
 ``write_prefill_paged`` / ``gather_pages`` are the paged-serving variants:
-pageable leaves (global attn K/V) live in a shared ``(num_pages+1,
+pageable leaves (global attn K/V, MLA latents) live in a shared ``(num_pages+1,
 page_size, ...)`` pool indexed through per-row page tables, while resident
-leaves (ring-buffer window, recurrent carries, cross K/V) keep the
+leaves (ring-buffer window, recurrent and rwkv carries, cross K/V) keep the
 slot-granular layout.  A bool ``flags`` tree (from
 ``repro_torch.models.paged_cache_flags``) tells the two layouts apart —
 leaf names alone cannot (``k``/``v`` is paged under global attention but
@@ -154,7 +154,7 @@ def write_prefill_paged(flags, cache, prefill_cache, pages, slot, prompt_len: in
 def gather_pages(flags, cache, pages):
     """Gather pool pages into contiguous past leaves for prefix reuse.
 
-    Every leaf must be pageable (prefix sharing is gated to pure attn
+    Every leaf must be pageable (prefix sharing is gated to pure attn/mla
     stacks); returns ``(1, n_pages * page_size, ...)`` leaves (with the
     leading layer axis kept for stacked ``blocks`` leaves) shaped like a B=1
     prefill of the shared prefix.  The gather copies.

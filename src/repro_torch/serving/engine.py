@@ -24,10 +24,11 @@ KV storage comes in two layouts:
   page need and refuses with a structured ``QUEUE_SATURATED`` (and
   ``retry_after_s``) when the pool cannot hold it; the reservation is what
   guarantees that mid-decode page allocation never fails.  Bounded per-row
-  state (ring-buffer windows, recurrent carries, cross K/V) stays
-  slot-granular, and archs with no pageable leaves (recurrentgemma-9b) fall
-  back to the slot-granular path.  The pool is written in place on the
-  engine's device; the page tables are uploaded once per change.
+  state (ring-buffer windows, recurrent and rwkv carries, cross K/V) stays
+  slot-granular, and archs with no pageable leaves (recurrentgemma-9b,
+  rwkv6-7b) fall back to the slot-granular path.  The pool is written in
+  place on the engine's device; the page tables are uploaded once per
+  change.
 
 The engine runs on the card unless it is given ``device="cpu"``.  Per-request
 telemetry (TTFT, decode tokens/s) is stamped through the injected ``clock``.
@@ -64,9 +65,10 @@ from repro_torch.serving.cache_utils import (extend_cache, gather_pages,
                                              write_prefill_paged, write_slots)
 from repro_torch.serving.kv_pages import PagePool, PrefixCache
 
-#: cache leaves the decode step reads and rewrites (recurrent carries): the
-#: one part of a step that is not idempotent, so a graph's warm-up restores it
-_CARRIES = ("h", "conv")
+#: cache leaves the decode step reads and rewrites (the RG-LRU's and rwkv's
+#: carries): the one part of a step that is not idempotent, so a graph's
+#: warm-up restores it
+_CARRIES = ("h", "conv", "s", "ts_tm", "ts_cm")
 
 #: one side stream per device for every engine's graph warm-ups: cuBLAS keeps
 #: a workspace (32 MiB on Hopper) for each stream it has run on, for the
@@ -645,7 +647,7 @@ class ServingEngine:
         """Capture the decode step for ``key`` (the table width, or ``None``)
         on the current inputs, with the argmax inside the graph.  One eager
         warm-up on a side stream comes first; it writes the same K/V the
-        step will, and the recurrent carries it advances are put back.  A
+        step will, and the recurrent and rwkv carries it advances are put back.  A
         failed capture raises: there is no eager fallback."""
         t0 = time.perf_counter()
         carries = [(t, t.clone()) for path, t in tree_leaves(self._cb_cache)

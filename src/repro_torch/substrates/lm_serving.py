@@ -34,16 +34,18 @@ Keywords beyond the reference's (each a deliberate difference):
 The resource id is ``lm-serving-torch-{arch}``, so one plane can hold this
 resource beside the reference's ``lm-serving-{arch}``.
 
-Two behaviours differ from the reference's on purpose: ``prepare``'s
+Three behaviours differ from the reference's on purpose: ``prepare``'s
 calibration prefills a second, longer prompt, so that the cost model fits
-a prefill's fixed and per-token parts (ROADMAP C5); and ``close`` lets go of
-the engine, which the reference keeps in a reference cycle (ROADMAP C6).
+a prefill's fixed and per-token parts (ROADMAP C5); ``close`` lets go of
+the engine, which the reference keeps in a reference cycle (ROADMAP C6);
+and the twin prices a request behind the live engine's backlog, as the
+admission check does, where the reference's prices it alone (ROADMAP C7).
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -69,6 +71,26 @@ MAX_WAIT_S = 120.0
 CALIBRATION_LONG_PREFILL = 512
 
 
+def price_request(cost: ServingCostModel, engine: Optional[ServingEngine], prompt,
+                  max_new_tokens: int) -> Tuple[float, Dict[str, int]]:
+    """-> (predicted ms, the backlog it was priced behind) for a request
+    joining ``engine`` now: the decode tokens owed to queued and live
+    requests, the waiting prompts' tokens and the prompt's prefix-cache hit
+    (a lone request's price with no engine).  The admission check and the
+    twin both price this way (ROADMAP C7)."""
+    seen = dict(backlog_tokens=0, backlog_prefill_tokens=0, prefix_cached_tokens=0)
+    if engine is not None:
+        backlog = engine.backlog()
+        seen.update(backlog_tokens=backlog["decode_tokens"],
+                    backlog_prefill_tokens=backlog["prefill_tokens"],
+                    prefix_cached_tokens=engine.cached_prefix_tokens(prompt))
+    pred_ms = cost.predict_request_ms(
+        len(prompt), max_new_tokens, seen["backlog_tokens"],
+        backlog_prefill_tokens=seen["backlog_prefill_tokens"],
+        cached_prefix_tokens=seen["prefix_cached_tokens"])
+    return pred_ms, seen
+
+
 class ServingSurrogate(TwinSurrogate):
     """Executable serving twin = the admission cost model made answerable.
 
@@ -76,13 +98,22 @@ class ServingSurrogate(TwinSurrogate):
     twin-served answer carries ``predicted: True`` with the cost model's
     timing estimates; divergence scores the *timing* prediction against
     real serves, which is exactly the fidelity the admission decision
-    depends on."""
+    depends on.
+
+    ``engine`` (a callable returning the live engine or ``None``) lets it
+    price a request behind the backlog it would join — queued and in-flight
+    decode tokens, the waiting prompts, the prompt's prefix-cache hit — as
+    the adapter's admission check does.  It is read at every ``simulate``,
+    so the surrogate holds no engine: with none bound (before ``prepare``,
+    after ``close``) it prices a lone request."""
 
     kind = "roofline"
     tolerance = 0.5
 
-    def __init__(self, cost: ServingCostModel):
+    def __init__(self, cost: ServingCostModel,
+                 engine: Callable[[], Optional[ServingEngine]]):
         self.cost = cost
+        self.engine = engine
 
     def observe(self, task, raw: Dict) -> None:
         pass   # the cost model is fed live by the engine's step observers
@@ -93,7 +124,7 @@ class ServingSurrogate(TwinSurrogate):
         max_new = int(payload.get("max_new_tokens", 8))
         if not prompt:
             raise TwinNotReady("serving twin needs a prompt to price")
-        pred_ms = self.cost.predict_request_ms(len(prompt), max_new)
+        pred_ms, seen = price_request(self.cost, self.engine(), prompt, max_new)
         step_ms = self.cost.step_ms()
         ttft_ms = self.cost.prefill_ms(len(prompt))
         tps = 1e3 / max(step_ms, 1e-9)
@@ -107,6 +138,7 @@ class ServingSurrogate(TwinSurrogate):
                 "drift_score": 0.0,
                 "health_status": "healthy",
                 "observation_ms": pred_ms,
+                **seen,
             },
             "artifacts": {"cost_model": self.cost.snapshot()},
             "backend_ms": 0.0,
@@ -221,24 +253,17 @@ class LmServingAdapter(SubstrateAdapter):
         if r.deadline_s is None:
             return
         remaining_ms = (r.deadline_s - self.clock.monotonic()) * 1e3
-        backlog = engine.backlog()
-        cached = engine.cached_prefix_tokens(r.prompt)
-        pred_ms = self.cost.predict_request_ms(
-            len(r.prompt), r.max_new_tokens, backlog["decode_tokens"],
-            backlog_prefill_tokens=backlog["prefill_tokens"],
-            cached_prefix_tokens=cached)
+        pred_ms, seen = price_request(self.cost, engine, r.prompt, r.max_new_tokens)
         if pred_ms > remaining_ms:
             raise AdmissionRefused(
                 ErrorCode.DEADLINE,
                 f"{r.request_id}: predicted completion {pred_ms:.0f}ms "
                 f"exceeds remaining deadline budget {remaining_ms:.0f}ms "
-                f"(backlog {backlog['decode_tokens']} decode + "
-                f"{backlog['prefill_tokens']} prefill tokens)",
+                f"(backlog {seen['backlog_tokens']} decode + "
+                f"{seen['backlog_prefill_tokens']} prefill tokens)",
                 detail={"predicted_ms": round(pred_ms, 1),
                         "remaining_ms": round(remaining_ms, 1),
-                        "backlog_tokens": backlog["decode_tokens"],
-                        "backlog_prefill_tokens": backlog["prefill_tokens"],
-                        "prefix_cached_tokens": cached})
+                        **seen})
 
     def prepare(self, session) -> None:
         self._check_prepare_fault()
@@ -378,4 +403,8 @@ class LmServingAdapter(SubstrateAdapter):
                          kind="roofline",
                          model={"admission": "roofline",
                                 **self.cost.snapshot()},
-                         surrogate=ServingSurrogate(self.cost))
+                         surrogate=ServingSurrogate(self.cost, self._bound_engine))
+
+    def _bound_engine(self) -> Optional[ServingEngine]:
+        """The live engine, for the twin to read at call time (ROADMAP C7)."""
+        return self.engine

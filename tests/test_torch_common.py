@@ -133,6 +133,22 @@ def test_init_params_distributions():
     assert torch.equal(p["w"], again["w"])                   # seeded
 
 
+def test_init_params_draws_a_leaf_past_the_limit_in_slices(monkeypatch):
+    """A leaf of more than ``_MAX_DRAW`` elements is drawn slice by slice
+    along its leading axis, with the same distribution and seeding; a leaf
+    within it is drawn whole, as before."""
+    specs = {"w": cm.ParamSpec((8, 256, 512), ("layers", "embed", "mlp"), torch.bfloat16),
+             "v": cm.ParamSpec((64, 32), ("embed", "mlp"), torch.float32)}
+    whole = cm.init_params(specs, seed=4, device="cpu")
+    assert abs(whole["w"].float().std().item() - 1 / 16) < 2e-3
+    monkeypatch.setattr(cm, "_MAX_DRAW", 256 * 512)
+    sliced = cm.init_params(specs, seed=4, device="cpu")
+    assert sliced["w"].dtype == torch.bfloat16 and sliced["w"].shape == (8, 256, 512)
+    assert abs(sliced["w"].float().std().item() - 1 / 16) < 2e-3
+    assert torch.equal(sliced["w"], cm.init_params(specs, seed=4, device="cpu")["w"])
+    assert torch.equal(sliced["v"], whole["v"])
+
+
 def test_entry_points_need_a_card_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device resolves to it")

@@ -514,6 +514,103 @@ def test_graphed_engine_serves_from_a_driver_thread(card):
     assert list(graphed.graph_capture_ms) == [None]
 
 
+def test_graphed_rwkv_engine_keeps_its_carries_through_the_warm_up(card):
+    """rwkv6-7b's state and token shifts are advanced by every decode step:
+    the graph's eager warm-up puts them back, so the carries after capture
+    are those before it, bit for bit; the graphed engine then gives the
+    eager engine's tokens, prompts of 32 and not."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving import Request
+
+    cfg, graphed, eager = _graph_pair(card, "rwkv6-7b")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in (5, 45, 32)]
+    for i, p in enumerate(prompts):
+        graphed.submit(Request(f"c{i}", p, max_new_tokens=6))
+    with torch.inference_mode():
+        graphed._admit_locked()
+        carries = {path: t.clone() for path, t in tree_leaves(graphed._cb_cache)
+                   if path.rsplit("/", 1)[-1] in ("s", "ts_tm", "ts_cm")}
+        assert len(carries) == 3 and all(t.any() for t in carries.values())
+        graphed._capture(None, graphed._step_inputs(None))
+        after = dict(tree_leaves(graphed._cb_cache))
+        assert all(torch.equal(after[path], t) for path, t in carries.items())
+    graphed.drain()
+    graphed.flush()
+    budgets = [7, 4, 11]
+    assert _serve(graphed, prompts, budgets, "g") == _serve(eager, prompts, budgets, "e")
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_graphed_moe_decode_step_is_bit_equal_to_eager(card, paged):
+    """moonshot-v1-16b-a3b (reduced, fp32) at ``capacity_factor=1.25``, so
+    that a decode step of three rows drops (token, expert) pairs and dead
+    rows compete with live ones for the experts' slots: one step's logits
+    through the graph equal the eager step's from the same cache bit for
+    bit, and the graphed engine gives the eager engine's tokens (paged, the
+    dead rows share the null page: ``write_pool_rows``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model_specs
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import Request, ServingEngine
+
+    base = reduced(get_config("moonshot-v1-16b-a3b"))
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=1.25))
+    params = init_params(model_specs(cfg), seed=1, device=card)
+    graphed, eager = (ServingEngine(cfg, params, device=card, batch_size=3, max_seq=64,
+                                    paged=paged, page_size=8, decode_graphs=g)
+                      for g in (True, False))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in (5, 12, 9)]
+    for i, p in enumerate(prompts):
+        graphed.submit(Request(f"m{i}", p, max_new_tokens=6))
+    graphed.step()
+    with torch.inference_mode():
+        live = [s for s in graphed._slots if s.request is not None]
+        width = graphed._grow_tables(live) if paged else None
+        inputs = graphed._step_inputs(width)
+        _, want = graphed._decode(graphed.params, graphed._cb_cache, *inputs)
+        want = want.clone()
+        graph = graphed._graphs.get(width) or graphed._capture(width, inputs)
+        graph[0].replay()
+        assert torch.equal(graph[1], want)
+    graphed.drain()
+    graphed.flush()
+    budgets = [7, 4, 11]
+    assert _serve(graphed, prompts, budgets, "g") == _serve(eager, prompts, budgets, "e")
+
+
+def test_mla_paged_decode_matches_contiguous_on_the_card(card):
+    """deepseek-v2-236b (reduced, fp32) on the card: the paged engine (MLA
+    latents in pool pages, prefix hits, a request growing across pages)
+    gives the contiguous engine's greedy tokens, graphed and eager."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model_specs
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = reduced(get_config("deepseek-v2-236b"))
+    params = init_params(model_specs(cfg), seed=1, device=card)
+    rng = np.random.default_rng(10)
+    common = rng.integers(1, cfg.vocab_size, 24)
+    prompts = [np.concatenate([common, rng.integers(1, cfg.vocab_size, n)]).astype(np.int32)
+               for n in (4, 7, 5)]
+    prompts += [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in (9, 17)]
+    budgets = [5, 21, 6, 8, 4]
+    want = _serve(ServingEngine(cfg, params, device=card, batch_size=3, max_seq=64),
+                  prompts, budgets, "c")
+    for graphs in (True, False):
+        paged = ServingEngine(cfg, params, device=card, batch_size=3, max_seq=64, paged=True,
+                              page_size=8, pool_pages=48, decode_graphs=graphs)
+        prefilled = []
+        paged.on_prefill_ms = lambda n, ms: prefilled.append(n)
+        assert _serve(paged, prompts, budgets, "p") == want
+        assert prefilled == [28, 7, 5, 9, 17]
+        assert paged.audit_pages()["reserved"] == 0
+
+
 def _adapter_cycle(card, cfg):
     """Prepare, serve one request and close an ``LmServingAdapter``; return
     a weak reference to its engine and the memory the caller still holds."""

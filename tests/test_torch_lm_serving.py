@@ -25,6 +25,7 @@ from repro.models.common import init_params as jax_init_params
 from repro.substrates import LmServingAdapter as JaxLmServingAdapter
 from repro.training.checkpoint import _flatten
 from repro_torch.core.errors import AdmissionRefused, ErrorCode
+from repro_torch.serving import Request
 from repro_torch.substrates import LmServingAdapter
 from repro_torch.weights import params_from_jax
 
@@ -236,3 +237,104 @@ def test_closed_adapter_frees_its_engine_without_the_cycle_collector():
     finally:
         if enabled:
             gc.enable()
+
+
+def test_twin_prices_the_backlog_of_the_bound_engine():
+    """ROADMAP C7: the surrogate of a prepared adapter prices a request
+    behind the live engine's backlog, as the admission check does, so a
+    request submitted behind queued work costs more than one alone; the
+    backlog it saw is reported.  A closed adapter's surrogate prices a lone
+    request, as before, and holds no engine (cycle collector off)."""
+    import gc
+    import weakref
+
+    adapter = LmServingAdapter(batch_size=2, max_seq=MAX_SEQ, device="cpu")
+    twin = adapter.make_twin()
+    task = _task("price", 6, 4)
+    lone = adapter.cost.predict_request_ms(6, 4)
+    assert twin.surrogate.simulate(task)["output"]["predicted_total_ms"] == round(lone, 3)
+    adapter.prepare(None)
+    engine = adapter.engine
+    try:
+        idle = twin.surrogate.simulate(task)
+        assert idle["telemetry"]["backlog_tokens"] == 0
+        assert idle["output"]["predicted_total_ms"] == round(
+            adapter.cost.predict_request_ms(6, 4), 3)
+        with engine._lock:           # no step can run: the work stays queued
+            for i in range(3):
+                engine.submit(Request(f"queued-{i}", np.arange(1, 11, dtype=np.int32),
+                                      max_new_tokens=8))
+            busy = twin.surrogate.simulate(task)
+        assert busy["telemetry"]["backlog_tokens"] == 24
+        assert busy["telemetry"]["backlog_prefill_tokens"] == 30
+        assert busy["telemetry"]["prefix_cached_tokens"] == 0
+        assert busy["output"]["predicted_total_ms"] == round(adapter.cost.predict_request_ms(
+            6, 4, 24, backlog_prefill_tokens=30), 3)
+        assert busy["output"]["predicted_total_ms"] > idle["output"]["predicted_total_ms"]
+    finally:
+        adapter.close()
+    held = weakref.ref(engine)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        del engine
+        assert held() is None
+        closed = twin.surrogate.simulate(task)
+        assert closed["telemetry"]["backlog_tokens"] == 0
+        assert closed["output"]["predicted_total_ms"] == round(
+            adapter.cost.predict_request_ms(6, 4), 3)
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def test_twin_and_admission_check_price_alike():
+    """ROADMAP C7: behind the same backlog, the twin's price is the one the
+    admission check refuses a doomed deadline with, and the backlog the
+    twin reports is the refusal's."""
+    adapter = LmServingAdapter(batch_size=2, max_seq=MAX_SEQ, device="cpu")
+    twin = adapter.make_twin()
+    adapter.prepare(None)
+    engine = adapter.engine
+    try:
+        with engine._lock:           # no step can run: the work stays queued
+            for i in range(3):
+                engine.submit(Request(f"queued-{i}", np.arange(1, 11, dtype=np.int32),
+                                      max_new_tokens=8))
+            sim = twin.surrogate.simulate(_task("price", 6, 4))
+            with pytest.raises(AdmissionRefused) as refused:
+                engine.submit(Request("doomed", np.arange(1, 7, dtype=np.int32),
+                                      max_new_tokens=4,
+                                      deadline_s=adapter.clock.monotonic() + 1e-3))
+        assert refused.value.code == ErrorCode.DEADLINE
+        detail = refused.value.detail
+        assert detail["predicted_ms"] == round(sim["output"]["predicted_total_ms"], 1)
+        for key in ("backlog_tokens", "backlog_prefill_tokens", "prefix_cached_tokens"):
+            assert detail[key] == sim["telemetry"][key]
+    finally:
+        adapter.close()
+
+
+def test_twin_prices_a_prefix_hit_of_the_bound_engine():
+    """ROADMAP C7: on a paged adapter with the prefix cache, the twin sees
+    the pages a served prompt left cached and prices only the suffix of a
+    prompt that shares them; a prompt that shares none is priced whole."""
+    adapter = LmServingAdapter(batch_size=2, max_seq=MAX_SEQ, device="cpu", paged=True,
+                               page_size=8)
+    twin = adapter.make_twin()
+    adapter.prepare(None)
+    try:
+        served = adapter.invoke(types.SimpleNamespace(task=_task("warm", 24, 2)))
+        assert len(served["output"]["tokens"]) == 2
+        adapter.engine.drain()
+        hit = twin.surrogate.simulate(_task("hit", 24, 4))
+        miss = twin.surrogate.simulate(types.SimpleNamespace(payload={
+            "prompt": list(range(100, 124)), "max_new_tokens": 4}))
+        assert hit["telemetry"]["prefix_cached_tokens"] == 16
+        assert miss["telemetry"]["prefix_cached_tokens"] == 0
+        assert hit["output"]["predicted_total_ms"] == round(
+            adapter.cost.predict_request_ms(24, 4, cached_prefix_tokens=16), 3)
+        assert miss["output"]["predicted_total_ms"] == round(
+            adapter.cost.predict_request_ms(24, 4), 3)
+    finally:
+        adapter.close()

@@ -29,7 +29,6 @@ from repro_torch.models import (build_decode_step, build_prefill_step, count_par
                                 decode_cache, full_forward_logits, loss_fn)
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
-from repro_torch.models.common import init_params
 from repro_torch.models.transformer import LayerDef, Stack
 from repro_torch.serving.cache_utils import extend_cache
 from repro_torch.weights import params_from_jax
@@ -145,28 +144,12 @@ def test_extend_cache_ring_roll_matches_jax():
 
 
 @pytest.mark.parametrize("defs,item", [
-    ([LayerDef("rwkv", "rwkv_cm")], "A8.2"),
-    ([LayerDef("mla", "dense")], "A8.3"),
-    ([LayerDef("attn", "moe")], "A8.3"),
     ([LayerDef("cross_only", "dense")], "A8.5"),
 ])
 def test_unported_layer_kinds_name_their_roadmap_item(defs, item):
-    """A layer kind not ported for serving raises on the serving path (rwkv
-    trains, so its stack builds and only its cache refuses)."""
+    """A layer kind not ported yet raises, naming its ROADMAP item."""
     with pytest.raises(NotImplementedError, match=item):
         Stack(reduced(get_config("internlm2-20b")), defs=defs).cache(1, 8, "cpu")
-
-
-def test_rwkv_serving_names_its_roadmap_item():
-    cfg = reduced(get_config("rwkv6-7b"))
-    stack = Stack(cfg)
-    params = init_params(stack.specs(), device="cpu")
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="A8.2"):
-        stack.prefill(params, x, torch.arange(4))
-    with pytest.raises(NotImplementedError, match="A8.2"):
-        stack.decode(params, x[:, :1], {}, 0)
-    assert stack.train(params, x, torch.arange(4)).shape == x.shape
 
 
 @pytest.mark.parametrize("arch", DENSE_ARCHS)

@@ -13,7 +13,6 @@ recurrentgemma-9b prompts stay within its 16-token window: past it the
 reference's ``extend_cache`` skips the ring roll that the port makes
 (ROADMAP §C), so the two engines would differ by design.
 """
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,8 +37,6 @@ from repro.serving import cache_utils as jcu
 from repro.serving import kv_pages as jkv
 from repro.training.checkpoint import _flatten
 from repro_torch.configs import get_config, reduced
-from repro_torch.configs.base import (ArchConfig, MLAConfig, MoEConfig, RecurrentConfig,
-                                      RWKVConfig)
 from repro_torch.core.errors import AdmissionRefused, ErrorCode
 from repro_torch.models import (build_decode_step_paged, build_prefill_past_step,
                                 build_prefill_step, decode_cache_paged, paged_cache_flags)
@@ -286,25 +283,6 @@ def test_paged_whisper_matches_jax_with_the_kernel():
     assert engines[1].audit_pages()["used"] == 0
 
 
-def _port_config(jcfg):
-    """The port's ArchConfig with a JAX config's fields (for archs the port
-    does not register)."""
-    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(ArchConfig)}
-    for key, cls in (("moe", MoEConfig), ("mla", MLAConfig), ("recurrent", RecurrentConfig),
-                     ("rwkv", RWKVConfig)):
-        if kw[key] is not None:
-            kw[key] = cls(**dataclasses.asdict(kw[key]))
-    return ArchConfig(**kw)
-
-
-def test_mla_paging_names_its_roadmap_item():
-    cfg = _port_config(jax_reduced(jax_get_config("deepseek-v2-236b")))
-    with pytest.raises(NotImplementedError, match="A8.3"):
-        ServingEngine(cfg, device="cpu", paged=True)
-    with pytest.raises(NotImplementedError, match="A8.3"):
-        paged_cache_flags(cfg)
-
-
 # -- functions ----------------------------------------------------------------
 
 def _tree(leaves, lib):
@@ -371,6 +349,18 @@ def _mixer_params(pair):
             if k.startswith("decoder/blocks/0/mixer/")}
     return ({k: jnp.asarray(v) for k, v in flat.items()},
             {k: torch.from_numpy(np.array(v)) for k, v in flat.items()})
+
+
+def test_pool_rows_sharing_a_slot_write_the_last_rows_value():
+    """Dead rows all write the null page's first slot: the slot gets the
+    last such row's value (the reference's in-order scatter), whatever
+    order the writes run in; the other rows write their own slots."""
+    pool = torch.zeros((3, 4, 2))
+    pid, off = torch.tensor([0, 2, 0, 0]), torch.tensor([0, 1, 0, 0])
+    values = torch.arange(8.0).reshape(4, 2)
+    tattn.write_pool_rows(pool, pid, off, values)
+    assert torch.equal(pool[0, 0], values[3]) and torch.equal(pool[2, 1], values[1])
+    assert int((pool != 0).any(-1).sum()) == 2
 
 
 def test_paged_decode_attention_matches_jax(attn_pair):

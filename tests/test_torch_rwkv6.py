@@ -232,7 +232,9 @@ def test_rwkv_time_mix_matches_jax(use_pallas, want_state, cont):
 
 @pytest.mark.parametrize("S", [64, 40, 20])
 def test_chunk_scan_matches_jax_at_ragged_lengths(S):
-    """The model's chunk choice: 32, one chunk of S < 32, or 1 token."""
+    """The model's chunk choice: 32, or one chunk of S < 32; at S = 40 the
+    port runs a chunk of 32 and one of 8 where the reference runs 40 chunks
+    of one token (ROADMAP C)."""
     r, k, v, lw, u = _inputs(1, S, 2, 16, seed=S, lw_high=1.0)
     st = (0.1 * np.random.default_rng(S).normal(size=(1, 2, 16, 16))).astype(np.float32)
     jy, js = jrwkv._chunk_scan(*map(jnp.asarray, (r, k, v, lw, u, st)))

@@ -382,17 +382,6 @@ def test_full_remat_saves_fewer_bytes_for_backward():
     assert saved["full"] * 5 < saved["nothing"], saved
 
 
-def test_moe_remat_policy_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A8.3"):
-        cm.remat_policy("moe")
-    _, tcfg = _configs("internlm2-20b", remat_policy="moe")
-    tp = init_train_state(tcfg, device="cpu").params
-    _, tb = _batch(2, 16, 128, seed=0)
-    with pytest.raises(NotImplementedError, match="A8.3"):
-        _port_grads(tcfg, tp, tb)
-    assert cm.maybe_remat(loss_fn, "nothing") is loss_fn
-
-
 @pytest.mark.parametrize("kernel", ["flash_attention", "rwkv6_scan"])
 @pytest.mark.parametrize("policy", ["nothing", "full"])
 def test_kernel_with_ref_vjp_under_remat(kernel, policy):
