@@ -87,9 +87,11 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
     (past the 2048 window, so the prefill's window is ring-rolled) decoded
     for 8 tokens; every step's logits against the full forward's, within
     2e-3.
-13. paged serving — internlm2-20b at full size (48 layers, d_model 6144,
-    48 heads of 128 with 8 kv heads, d_ff 16384, vocab 92544; 19.9 B
-    parameters) in bf16 with random seeded weights: the paged engine
+13. paged serving — internlm2-20b at full width cut to ``LM_LAYERS`` = 40
+    of its 48 layers (d_model 6144, 48 heads of 128 with 8 kv heads, d_ff
+    16384, vocab 92544; 16.74 B parameters; 48 layers, 19.86 B, until the
+    vision and distributed phases came) in bf16 with random seeded
+    weights: the paged engine
     (``ServingEngine(paged=True)``, batch 8, max_seq 4096, page 16, the
     default pool of 2048 pages) and the contiguous engine, both graphed, on
     the same parameters serve 16 requests in turns (paged, contiguous,
@@ -183,6 +185,33 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
     8 x 4096 tokens in 4 microbatches under ``"full"``: K1 once per
     attention layer and microbatch and again for the MoE block's
     recompute, the aux loss finite and positive, the 6·N_active·D floor.
+26. vision_serving — llama-3.2-vision-90b at full width cut to one cycle,
+    5 of its 100 layers (4 ``attn`` + 1 gated ``cross_only``; d_model
+    8192, 64 heads of 128 with 8 kv heads, d_ff 28672, vocab 128256, 1600
+    image tokens; 6.50 B parameters) in bf16 with ``xgate = 0.5`` and one
+    seeded image in every admission: the graphed engine (batch 8, max_seq 4096) serves 16
+    requests of 64-2048 tokens, an eager engine the same with identical
+    tokens, one step's logits bit-equal (the live rows' image K/V
+    non-zero), then the paged engine (image K/V
+    resident, no prefix cache) with each first token the contiguous
+    engine's.  K1 launches in no prefill.  Prime ms and step ms against
+    their bounds (the step reads the rows' 52 MB each of image K/V).
+27. vision_parity — the same 5 layers in fp32 with ``xgate = 0.5`` and
+    seeded image embeddings: a 300-token prefill and 24 decode steps, layer
+    by layer, within 1e-4 of the full forward's largest output at each
+    position; the cached image K/V bit-equal to ``cross_kv``.
+28. vision_train — the same 5 layers in bf16 with the config's bf16
+    moments, ``"full"`` remat and 8 microbatches, ``xgate = 0.5``: 2 steps
+    of 8 x 2048 tokens (cut from 4096: see ``VISION_TRAIN_SEQ``) with
+    seeded image embeddings; K1's launches as the stack's structure says
+    (4 attention layers, twice for the cycle's recompute, per
+    microbatch); the cross layer's gate and projections receive a
+    gradient; step ms against the 6·N·D floor, peak GB.
+29. distributed — internlm2-20b at full width cut to 2 layers, 2 steps of
+    4 x 1024 tokens through the launcher's loop on a 1×1 mesh (an NCCL
+    group of one) under the ``baseline`` recipe, and with no context, in
+    bf16 and in fp32: losses within 5e-3, fp32 grad norms within 1e-3; K1
+    launches only without the context.
 
 Output: the card (``nvidia-smi`` name and power limit), one JSON line per
 phase, the ``{"kernels": [...]}`` line, and as the last line
@@ -216,7 +245,8 @@ SWEEP = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 512, 8, 1, 128),
          (2, 192, 6, 3, 32), (1, 128, 4, 2, 128), (1, 256, 4, 2, 192), (2, 333, 8, 2, 128)]
 #: K1 timed beside the serving shape: causal GQA attention of one layer at
 #: 4096 tokens (B, S, H, K, hd): internlm2-20b, nemotron-4-340b
-ATTN_SHAPES = {"internlm2-20b": (1, 4096, 48, 8, 128), "nemotron-4-340b": (1, 4096, 96, 8, 192)}
+ATTN_SHAPES = {"internlm2-20b": (1, 4096, 48, 8, 128), "nemotron-4-340b": (1, 4096, 96, 8, 192),
+               "llama-3.2-vision-90b": (1, 4096, 64, 8, 128)}
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}   # (rtol, atol)
 #: K1's gradient: (rtol, atol)
 GRAD_TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
@@ -841,13 +871,18 @@ def rg_decode_parity_phase(k2) -> dict:
     return res
 
 
-#: paged serving (ROADMAP A.1) at full size: internlm2-20b, one 1024-token
+#: paged serving (ROADMAP A.1) at full width: internlm2-20b, one 1024-token
 #: prefix (64 pages) shared by 8 requests with suffixes of 17-512 tokens, and 8
 #: unrelated prompts of 64-2048 tokens, some not a multiple of the page
 PAGED_PREFIX = 1024
 PAGED_SUFFIXES = (17, 40, 64, 100, 160, 256, 333, 512)
 PAGED_UNRELATED = (64, 100, 250, 512, 777, 1024, 1500, 2048)
 PAGED_MAX_SEQ = 4096
+#: internlm2-20b's depth in paged_serving, decode_graph internlm2 and
+#: serving_substrate internlm2 (48 of 48 before the vision and distributed
+#: phases; cut so that the slowest run seen, with them, stays within 1000 s:
+#: about 5.6 s a layer)
+LM_LAYERS = 40
 PAGED_NEW, PAGED_LONG_NEW = 32, 200         # one request decodes 200: 12 page boundaries
 #: paged parity (fp32, 4 of 48 layers): the same kind of trace within max_seq 1024
 PARITY_PREFIX = 256
@@ -948,6 +983,7 @@ def serve_trace(eng, trace, group=()) -> dict:
         a["launches"] = n
     out["step_kv_tokens"] = sum(len(r.prompt) + j - 1 for r in reqs
                                 for j in range(2, r.max_new_tokens + 1))
+    out["step_rows"] = sum(r.max_new_tokens - 1 for r in reqs)     # live rows, summed over steps
     return out
 
 
@@ -956,8 +992,10 @@ def serving_work(cfg) -> dict:
     of them, and those a token uses: an expert leaf at top_k / num_experts),
     the unembedding (read whole for every step's logits; the embedding is
     only gathered), the cache bytes one cached token holds (attn K/V, MLA
-    latents) and those a batch row holds whatever its length (rwkv state and
-    token shifts), and the attention FLOPs of one (query, key) pair."""
+    latents) and those a batch row holds whatever its length: rwkv state and
+    token shifts, which a step reads and writes, and the image K/V of the
+    ``cross_only`` layers, which the prefill writes and a step reads once;
+    and the attention FLOPs of one (query, key) pair."""
     from repro_torch.models import model_specs
     from repro_torch.models.common import tree_leaves
     from repro_torch.models.transformer import build_layer_defs
@@ -982,23 +1020,32 @@ def serving_work(cfg) -> dict:
     row = 0
     if cfg.rwkv is not None:
         row = mixers.count("rwkv") * (H * cfg.rwkv.head_dim ** 2 * 4 + 2 * cfg.d_model * elem)
+    cross_layers = mixers.count("cross_only")
+    cross = cross_layers * 2 * cfg.num_image_tokens * H * hd * elem     # ck and cv, full MHA
+    cross_pair_flops = 4 * hd * H * cross_layers
     return dict(layer_params=layer, active_layer_params=active,
                 head_params=cfg.d_model * cfg.vocab_size, elem=elem, attn_layers=attn_layers,
                 mla_layers=mla_layers, kv_token_bytes=kv, row_state_bytes=row,
+                cross_layers=cross_layers, row_cross_bytes=cross,
+                cross_pair_flops=cross_pair_flops, image_tokens=cfg.num_image_tokens,
                 pair_flops=pair_flops)
 
 
 def prefill_bound(cfg, work, new: int, past: int) -> dict:
     """Least time of one B=1 prefill of ``new`` tokens after ``past`` cached
     ones: 2 FLOPs per active layer parameter and token, the attention FLOPs
-    of each visible (query, key) pair, one token's logits; against the
-    weights read once, the past K/V read and the new K/V written.  The
+    of each visible (query, key) pair and of each (query, image token) pair
+    of the ``cross_only`` layers, one token's logits; against the weights
+    read once, the past K/V read, the new K/V and the row's image K/V
+    written.  The
     peak is bf16's for bf16 and the fp32 units' for fp32 (TF32 off)."""
     pairs = new * past + new * (new + 1) // 2
     flops = (2 * work["active_layer_params"] * new + work["pair_flops"] * pairs
+             + work["cross_pair_flops"] * new * work["image_tokens"]
              + 2 * work["head_params"])
     nbytes = ((work["layer_params"] + work["head_params"]) * work["elem"]
-              + (past + new) * work["kv_token_bytes"] + work["row_state_bytes"])
+              + (past + new) * work["kv_token_bytes"] + work["row_state_bytes"]
+              + work["row_cross_bytes"])
     peak = PEAK_BF16_FLOPS if work["elem"] == 2 else PEAK_FP32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
@@ -1008,12 +1055,12 @@ def prefill_bound(cfg, work, new: int, past: int) -> dict:
 def decode_bound_ms(work, kv_tokens: float, rows: int = 0, active: bool = False) -> float:
     """Least time of one decode step: the weights (all but the embedding;
     with ``active`` only the experts' share a token uses, as if only the
-    routed experts were read), the live rows' cached K/V and the ``rows``'
-    resident state (read and written) once, at the memory rate (the step's
-    2·params·rows FLOPs take far less)."""
+    routed experts were read), the live rows' cached K/V, the ``rows``'
+    recurrent state (read and written) and their image K/V (read) once, at
+    the memory rate (the step's 2·params·rows FLOPs take far less)."""
     params = work["active_layer_params" if active else "layer_params"] + work["head_params"]
     return (params * work["elem"] + kv_tokens * work["kv_token_bytes"]
-            + 2 * rows * work["row_state_bytes"]) / PEAK_BYTES * 1e3
+            + rows * (2 * work["row_state_bytes"] + work["row_cross_bytes"])) / PEAK_BYTES * 1e3
 
 
 def token_agreement(a, b) -> float:
@@ -1032,9 +1079,11 @@ def paged_run_summary(cfg, work, run, trace) -> dict:
             id=rid, prompt=len(prompt), prefilled=a["tokens"], ms=a["ms"],
             **prefill_bound(cfg, work, a["tokens"], past)))
     kv = run["step_kv_tokens"] / run["metrics"]["decode_steps"]
+    rows = run["step_rows"] / run["metrics"]["decode_steps"]
     res = dict(step_ms=run["step_ms"], step_ms_median=run["step_ms_median"],
                decode_steps=run["metrics"]["decode_steps"],
-               step_bound_ms=decode_bound_ms(work, kv), mean_cached_tokens_per_step=kv,
+               step_bound_ms=decode_bound_ms(work, kv, rows), mean_cached_tokens_per_step=kv,
+               mean_rows_per_step=rows,
                tokens=run["metrics"]["tokens"], tokens_per_s=run["tokens_per_s"],
                wall_s=run["wall_s"], prefill_ms=run["metrics"]["prefill_ms"])
     for kind in ("miss", "hit"):
@@ -1073,7 +1122,7 @@ def check_paged_run(eng, run, trace, prefix_len, name) -> dict:
 
 
 def paged_serving_phase(cfg) -> dict:
-    """internlm2-20b at full size (48 layers, 19.9 B parameters) in bf16
+    """internlm2-20b at full width (``LM_LAYERS`` of 48 layers) in bf16
     with random seeded weights: the paged engine (batch 8, max_seq 4096,
     page 16, the default pool of 2048 pages) and the contiguous engine on
     the same parameter tensors, both with their decode steps as CUDA graphs
@@ -1511,13 +1560,14 @@ def decode_window(eng, cfg, prompt_len: int, steps: int = 8) -> dict:
     return dict(steps=steps, prompt=prompt_len, wall_ms_unprofiled=wall_ms, **res)
 
 
-def graph_logits_check(eng, cfg, prompt_len: int = 64) -> dict:
+def graph_logits_check(eng, cfg, prompt_len: int = 64, resident=None) -> dict:
     """One decode step's logits from the same cache state through the
     eager step function and through the graph.  A full batch is admitted
     and steps once; the next step's inputs then go through both (the K/V
     the eager step writes are the ones the graph writes again; the
-    recurrent carries it advances are put back first).  The engine is
-    flushed after."""
+    recurrent carries it advances are put back first).  ``resident`` names
+    a cache leaf (keys from the cache's root) whose largest magnitude over
+    the live rows is reported.  The engine is flushed after."""
     from repro_torch.models.common import tree_leaves
     from repro_torch.serving import Request
     from repro_torch.serving.engine import _CARRIES
@@ -1540,11 +1590,18 @@ def graph_logits_check(eng, cfg, prompt_len: int = 64) -> dict:
         graph = eng._graphs.get(width) or eng._capture(width, inputs)
         graph[0].replay()
         graphed = graph[1].clone()
+        extra = {}
+        if resident is not None:
+            leaf = eng._cb_cache
+            for key in resident:
+                leaf = leaf[key]
+            rows = torch.tensor([s.index for s in live], device=leaf.device)
+            extra["resident_abs_max"] = leaf.index_select(1, rows).abs().max().item()
     eng.flush()
     return dict(rows=len(live), width=width, bit_equal=bool(torch.equal(graphed, eager)),
                 max_abs_diff=(graphed - eager).abs().max().item(),
                 argmax_equal=bool(torch.equal(graphed.argmax(-1), eager.argmax(-1))),
-                logit_abs_max=eager.abs().max().item())
+                logit_abs_max=eager.abs().max().item(), **extra)
 
 
 def graph_pool_bytes(eng):
@@ -1766,14 +1823,17 @@ def tokens_of(run) -> list:
     return [r.generated for r in run["requests"]]
 
 
-def graphed_against_eager(cfg, params, trace, graphed_run, **engine_kw) -> dict:
+def graphed_against_eager(cfg, params, trace, graphed_run, image=None, **engine_kw) -> dict:
     """An eager engine (``decode_graphs=False``) with ``engine_kw`` serves the
-    trace the graphed engine served in ``graphed_run``: the greedy tokens
+    trace the graphed engine served in ``graphed_run`` (with ``image`` as
+    every admission's image embeddings where given): the greedy tokens
     must be identical.  Returns the eager run's step ms, tokens/s and
     prime ms."""
     from repro_torch.serving import ServingEngine
 
     eager = ServingEngine(cfg, params, batch_size=8, decode_graphs=False, **engine_kw)
+    if image is not None:
+        feed_image(eager, image)
     run = serve_trace(eager, trace)
     if tokens_of(run) != tokens_of(graphed_run):
         raise AssertionError(f"{cfg.name}: graphed and eager greedy tokens differ; agreement "
@@ -2082,9 +2142,8 @@ def moe_train_phase(k1) -> dict:
     cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), num_layers=MOE_TRAIN_LAYERS,
                               use_pallas=True)
     assert cfg.remat_policy == "full" and cfg.microbatches == 4
-    prefix = cfg.moe.first_moe_layer
-    per_micro = prefix + 2 * (MOE_TRAIN_LAYERS - prefix)
-    res = train_phase(cfg, k1, per_micro * cfg.microbatches * MOE_TRAIN_STEPS,
+    res = train_phase(cfg, k1, k1_launches_per_microbatch(cfg) * cfg.microbatches
+                      * MOE_TRAIN_STEPS,
                       lambda path: path.rsplit("/", 1)[-1] in ("router", "w_gate", "w_down"),
                       steps=MOE_TRAIN_STEPS, name="moe_train", profile=False)
     aux = [r["moe_aux"] for r in res["steps"]]
@@ -2098,6 +2157,367 @@ def moe_train_phase(k1) -> dict:
         "active_params", "floor_ms", "moe_aux", "k1_per_step", "peak_mem_gb")},
           "step_ms": [r["step_ms"] for r in res["steps"]],
           "tokens_per_s": [r["tokens_per_s"] for r in res["steps"]]})
+    return res
+
+
+#: vision_serving / vision_parity / vision_train: llama-3.2-vision-90b at full
+#: width cut to one whole cycle of its 100 layers (4 attn + 1 cross_only)
+VISION_LAYERS = 5
+VISION_LENGTHS = (64, 128, 192, 256, 384, 512, 640, 768, 896, 1024, 1280, 1536, 1664, 1792,
+                  1920, 2048)
+VISION_MAX_SEQ = 4096
+VISION_PARITY_PROMPT, VISION_PARITY_STEPS = 300, 24
+#: a step is 8 microbatches (the config's) of 1 x VISION_TRAIN_SEQ tokens;
+#: at 4096 K1's plain backward (fp32 scores, 4.3 GB a call at 64 heads) does
+#: not fit beside the 65 GB of state and accumulators, so the step's tokens
+#: are cut (never the widths or the 5-layer cycle)
+VISION_TRAIN_STEPS, VISION_TRAIN_ROWS, VISION_TRAIN_SEQ = 2, 8, 2048
+#: the cross layers' gate in the parity and train phases: tanh(0) = 0 at
+#: init would make a cross layer add nothing
+VISION_XGATE = 0.5
+#: distributed: internlm2-20b at full width, this many layers, steps of
+#: DIST_BATCH x DIST_SEQ tokens
+DIST_LAYERS, DIST_STEPS, DIST_BATCH, DIST_SEQ = 2, 2, 4, 1024
+DIST_LOSS_TOL = 5e-3                           # tests/test_use_pallas.py's loss tolerance
+DIST_GRAD_NORM_TOL = 1e-3                      # train_parity's, on the first step's grads
+
+
+def vision_cfg(**kw):
+    """llama-3.2-vision-90b cut to ``VISION_LAYERS`` (one whole cycle)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import build_layer_defs
+
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-90b"), num_layers=VISION_LAYERS, **kw)
+    assert [d.mixer for d in build_layer_defs(cfg)] == ["attn"] * 4 + ["cross_only"]
+    return cfg
+
+
+def feed_image(eng, image):
+    """``eng`` with ``image`` (1, image tokens, d_model) as every admission's
+    image embeddings in place of the frontend stub's zeros."""
+    eng._batch_extras = lambda B: {"image_embeds": image.expand(B, -1, -1).contiguous()}
+    return eng
+
+
+def vision_serving_phase() -> dict:
+    """llama-3.2-vision-90b at full width cut to 5 of 100 layers (one cycle:
+    4 ``attn`` + 1 ``cross_only``; 6.50 B parameters) in bf16 with random
+    seeded weights, ``xgate = 0.5`` and one seeded image in every admission
+    of every engine (under the frontend stub's zero embeddings, or the
+    initial ``xgate = 0``, a cross layer adds nothing):
+    ``ServingEngine(batch_size=8, max_seq=4096)``, graphed, 16 requests of
+    64-2048 tokens.  K1 must launch in no prefill (the serving
+    path reaches none, as in the reference).  An eager engine serves the
+    same requests with identical tokens; one step's logits through the
+    graph are bit-equal to the eager step's; then the paged engine (attn
+    K/V in the pool, the image K/V resident, no prefix cache) serves them,
+    and each request's first token must be the contiguous engine's (the
+    same B=1 prefill).  Reported: prime ms against each admission's bound,
+    step ms against one read of the weights, the rows' image K/V and the
+    live K/V, tokens/s, the device idle share of 8 decode steps, peak GB."""
+    from repro_torch.models import count_params, model_specs
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = vision_cfg(use_pallas=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(model_specs(cfg), seed=0, device="cuda")
+    params["decoder"]["blocks"]["4"]["xgate"].fill_(VISION_XGATE)
+    image = torch.randn((1, cfg.num_image_tokens, cfg.d_model), dtype=torch.bfloat16,
+                        device="cuda", generator=torch.Generator(device="cuda").manual_seed(5))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    work = serving_work(cfg)
+    budgets = np.random.default_rng(0).permutation(
+        np.linspace(8, 64, len(VISION_LENGTHS)).astype(int))
+    trace = new_trace(cfg, VISION_LENGTHS, budgets, seed=7)
+    eng = feed_image(ServingEngine(cfg, params, batch_size=8, max_seq=VISION_MAX_SEQ), image)
+    reset_counts()
+    run = serve_trace(eng, trace)
+    launches = read_counts()
+    if launches["flash_attention"]:
+        raise AssertionError(f"vision_serving: K1 launched {launches['flash_attention']} times")
+    prime = [dict(prompt=len(p), ms=a["ms"], **prefill_bound(cfg, work, len(p), 0))
+             for (_, p, _, _), a in zip(trace, run["admissions"])]
+    kv = run["step_kv_tokens"] / run["metrics"]["decode_steps"]
+    rows = run["step_rows"] / run["metrics"]["decode_steps"]
+    res = dict(arch=cfg.name, layers=cfg.num_layers, params=count_params(cfg), init_s=init_s,
+               batch=8, max_seq=VISION_MAX_SEQ, requests=len(trace), launches=launches,
+               prime=prime, prime_ms=run["metrics"]["prefill_ms"] / len(trace),
+               prime_bound_ms_mean=sum(p["bound_ms"] for p in prime) / len(prime),
+               step_ms=run["step_ms"], step_ms_median=run["step_ms_median"],
+               step_bound_ms=decode_bound_ms(work, kv, rows),
+               step_bound_ms_full_batch_no_kv=decode_bound_ms(work, 0, 8),
+               mean_cached_tokens_per_step=kv, mean_rows_per_step=rows,
+               kv_token_bytes=work["kv_token_bytes"], row_cross_bytes=work["row_cross_bytes"],
+               decode_steps=run["metrics"]["decode_steps"], tokens=run["metrics"]["tokens"],
+               tokens_per_s=run["tokens_per_s"], wall_s=run["wall_s"])
+    res["logits"] = graph_logits_check(eng, cfg, 64, resident=("blocks", "4", "ck"))
+    if not res["logits"]["resident_abs_max"] > 0:
+        raise AssertionError(f"vision_serving: the live rows' image K/V are zero: "
+                             f"{res['logits']}")
+    if not res["logits"]["bit_equal"]:
+        raise AssertionError(f"vision_serving: graphed logits differ from eager: {res['logits']}")
+    res["window"] = decode_window(eng, cfg, 64)
+    del eng
+    torch.cuda.empty_cache()
+    res["eager"] = graphed_against_eager(cfg, params, trace, run, image=image,
+                                         max_seq=VISION_MAX_SEQ)
+    paged = feed_image(ServingEngine(cfg, params, batch_size=8, max_seq=VISION_MAX_SEQ,
+                                     paged=True, page_size=16), image)
+    prun = serve_trace(paged, trace)
+    for (rid, prompt, _, _), rp, rc in zip(trace, prun["requests"], run["requests"]):
+        if rp.generated[0] != rc.generated[0]:
+            raise AssertionError(f"vision_serving: {rid} ({len(prompt)} tokens) paged first "
+                                 f"token {rp.generated[0]}, contiguous {rc.generated[0]}")
+    res["paged"] = paged_run_summary(cfg, work, prun, trace)
+    res["paged"].update(check_paged_run(paged, prun, trace, 0, "vision_serving"),
+                        token_agreement_bf16=token_agreement(prun["requests"], run["requests"]))
+    if res["paged"]["prefix_hits"]:
+        raise AssertionError("vision_serving: a prefix hit without a prefix cache")
+    del paged, prun
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "vision_serving", **res})
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def vision_parity_phase() -> dict:
+    """llama-3.2-vision-90b at full width, 5 layers, fp32 (TF32 off), with
+    ``xgate = 0.5`` and image embeddings drawn from a seeded normal: a
+    prefill of ``VISION_PARITY_PROMPT`` tokens and then
+    ``VISION_PARITY_STEPS`` decode steps, layer by layer from the same
+    input, against the full forward of the whole sequence: every step's
+    output within ``LAYER_REL`` of the largest output at its position.  The
+    image K/V the prefill leaves in the cache (layer by layer and through
+    the model's prefill step) must equal ``cross_kv`` of the image
+    embeddings bit for bit."""
+    from repro_torch.models import build_prefill_step, model_specs
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import init_params
+    from repro_torch.models.model import _decoder, _embed_tokens
+    from repro_torch.models.transformer import (apply_layer_decode, apply_layer_prefill,
+                                                layer_cache)
+    from repro_torch.serving.cache_utils import extend_cache
+
+    cfg = vision_cfg(param_dtype="float32", compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(model_specs(cfg), seed=1, device="cuda")
+    params["decoder"]["blocks"]["4"]["xgate"].fill_(VISION_XGATE)
+    n, steps = VISION_PARITY_PROMPT, VISION_PARITY_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n + steps), generator=gen, device="cuda")
+    image = torch.randn((1, cfg.num_image_tokens, cfg.d_model), generator=gen, device="cuda")
+    positions = torch.arange(n + steps, device="cuda")
+    dec = _decoder(cfg)
+    rel, cross_equal = [], []
+    with torch.inference_mode():
+        x = _embed_tokens(cfg, params, tokens)
+        for group, key, r, d, lp in dec._layers(params["decoder"]):
+            full, _, _ = apply_layer_prefill(cfg, d, lp, x, positions, image, 0.0)
+            _, cache, _ = apply_layer_prefill(cfg, d, lp, x[:, :n], positions[:n], image, 0.0)
+            if d.mixer == "cross_only":
+                ckv = attn.cross_kv(lp["mixer"], image)
+                cross_equal.append(torch.equal(cache["ck"], ckv["k"])
+                                   and torch.equal(cache["cv"], ckv["v"]))
+            cache = extend_cache(layer_cache(cfg, d, 1, n + steps, "cuda"), cache, n)
+            errs = []
+            for t in range(n, n + steps):
+                out, _ = apply_layer_decode(cfg, d, lp, x[:, t:t + 1], cache, t, 0.0)
+                want = full[:, t:t + 1]
+                errs.append(((out - want).abs().max() / want.abs().max()).item())
+            rel.append(errs)
+            if not all(e <= LAYER_REL for e in errs):
+                raise AssertionError(f"vision_parity: layer {len(rel) - 1} ({d.mixer}) decode "
+                                     f"differs from the full forward by {max(errs):.3e} of "
+                                     "the largest output")
+            x = full
+        pcache, _ = build_prefill_step(cfg)(params, {"tokens": tokens[:, :n],
+                                                     "image_embeds": image})
+        ckv = attn.cross_kv({k: v[0] for k, v in params["decoder"]["blocks"]["4"]["mixer"]
+                             .items()}, image)
+        cross_equal.append(torch.equal(pcache["blocks"]["4"]["ck"][0], ckv["k"])
+                           and torch.equal(pcache["blocks"]["4"]["cv"][0], ckv["v"]))
+    if not all(cross_equal):
+        raise AssertionError(f"vision_parity: the cached image K/V are not cross_kv's: "
+                             f"{cross_equal}")
+    res = dict(arch=cfg.name, layers=cfg.num_layers, dtype="float32", tf32=False,
+               xgate=VISION_XGATE, prompt=n, steps=steps, limit=LAYER_REL,
+               layer_rel_err=[max(e) for e in rel], max_layer_rel_err=max(max(e) for e in rel),
+               image_kv_equal=cross_equal, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit({"phase": "vision_parity", **res})
+    del params, pcache
+    torch.cuda.empty_cache()
+    return res
+
+
+def k1_launches_per_microbatch(cfg) -> int:
+    """K1 launches of one microbatch's forward and backward, read off the
+    stack's structure: each ``attn`` layer's self-attention once, and once
+    more for the recompute of the repeated cycle's blocks under a remat
+    policy other than ``"nothing"`` (prefix and suffix layers are not
+    rematerialised, as in the reference)."""
+    from repro_torch.models.transformer import Stack
+
+    stack = Stack(cfg)
+    attn = lambda defs: sum(d.mixer == "attn" for d in defs)
+    again = 2 if cfg.remat_policy != "nothing" else 1
+    return attn(stack.prefix) + attn(stack.suffix) + again * stack.reps * attn(stack.cycle)
+
+
+def vision_train_phase(k1) -> dict:
+    """llama-3.2-vision-90b at full width, 5 layers, bf16 params and the
+    config's bf16 moments, its ``"full"`` remat and 8 microbatches,
+    ``use_pallas=True``, ``xgate = 0.5``: ``VISION_TRAIN_STEPS`` steps of
+    8 x 1 x ``VISION_TRAIN_SEQ`` tokens, each batch built here with seeded
+    image embeddings (the launcher's synthetic data has none, as the
+    reference's).  K1 must launch as often as the stack's structure says
+    (``k1_launches_per_microbatch``, counted before the run); loss and grad
+    norm finite; the cross layer's gate and projections must receive a
+    gradient.  Step ms, tokens/s against the 6·N·D/peak floor, peak GB."""
+    from repro_torch.models import count_params
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import build_train_step, init_train_state
+    from repro_torch.training.data import SyntheticTokenDataset
+
+    cfg = vision_cfg(use_pallas=True)
+    assert (cfg.remat_policy, cfg.microbatches, cfg.moment_dtype) == ("full", 8, "bfloat16")
+    expected = k1_launches_per_microbatch(cfg) * cfg.microbatches * VISION_TRAIN_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, device="cuda")
+    state.params["decoder"]["blocks"]["4"]["xgate"].fill_(VISION_XGATE)
+    step = build_train_step(cfg)
+    data = SyntheticTokenDataset(cfg.vocab_size, VISION_TRAIN_SEQ, VISION_TRAIN_ROWS)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    records = []
+    reset_counts()
+    for i in range(VISION_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to("cuda", torch.long)
+                 for k, v in data.batch_at(i).items()}
+        batch["image_embeds"] = torch.randn(
+            (VISION_TRAIN_ROWS, cfg.num_image_tokens, cfg.d_model), generator=gen,
+            device="cuda").to(cfg.dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        vals = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        records.append(dict(step=i, loss=vals["loss"], grad_norm=vals["grad_norm"],
+                            step_ms=ms, tokens_per_s=VISION_TRAIN_ROWS * VISION_TRAIN_SEQ
+                            / (ms / 1e3)))
+        if not (math.isfinite(vals["loss"]) and math.isfinite(vals["grad_norm"])):
+            raise AssertionError(f"vision_train step {i}: {vals}")
+    launches = read_counts()
+    if launches["flash_attention"] != expected:
+        raise AssertionError(f"vision_train: K1 launched {launches['flash_attention']} times, "
+                             f"expected {expected} from the stack")
+    nu = state.opt.nu["decoder"]["blocks"]["4"]
+    no_grad = [k for k, t in (("xgate", nu["xgate"]), *nu["mixer"].items()) if not t.any()]
+    if no_grad:
+        raise AssertionError(f"vision_train: cross layer leaves without a gradient: {no_grad}")
+    n = count_params(cfg)
+    floor_ms = 6 * n * VISION_TRAIN_ROWS * VISION_TRAIN_SEQ / PEAK_BF16_FLOPS * 1e3
+    res = dict(arch=cfg.name, layers=cfg.num_layers, params=n, rows=VISION_TRAIN_ROWS,
+               seq=VISION_TRAIN_SEQ, microbatches=cfg.microbatches,
+               remat_policy=cfg.remat_policy, moment_dtype=cfg.moment_dtype,
+               xgate=VISION_XGATE, launches=launches, k1_expected=expected,
+               k1_per_step=launches["flash_attention"] // VISION_TRAIN_STEPS,
+               steps=records, floor_ms=floor_ms,
+               state_gb=sum(t.numel() * t.element_size() for tree in (
+                   state.params, state.opt.mu, state.opt.nu) for _, t in tree_leaves(tree)) / 1e9,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit({"phase": "vision_train", **res})
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def distributed_phase() -> dict:
+    """internlm2-20b at full width, ``DIST_LAYERS`` layers,
+    ``use_pallas=True``: ``DIST_STEPS`` steps of ``DIST_BATCH`` x
+    ``DIST_SEQ`` tokens through the launcher's loop, once on a 1×1 mesh
+    (``make_smoke_mesh``: an NCCL process group of one) under
+    ``sharding_ctx(mesh, RECIPES["baseline"])`` with the state placed by
+    ``param_shardings``, and once with no context; in bf16, then in fp32
+    (TF32 off).  Under the context ``sp_gqa_block`` takes each layer (its
+    axes have size 1, which it does not decline, as the reference's does
+    not) and calls the plain attention without ``cfg``, so K1 runs only
+    without the context; a third bf16 run with no context and no kernel
+    (``use_pallas=False``) takes the same attention as the context's.  The
+    losses of each pair must agree within ``DIST_LOSS_TOL``, and the first
+    step's grad norms (the same parameters) within ``DIST_GRAD_NORM_TOL``
+    where the attention path is the same: the fp32 pair and the context
+    against the bf16 run without the kernel (bf16's K1 run is reported:
+    its backward recomputes in fp32, the plain path's in bf16).  Later
+    steps are reported: AdamW's first update moves an element by about lr
+    whatever the sign of a grad near zero, so rounding parts the
+    parameters.  This is all one card shows of the distributed layer;
+    several cards are not measured."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import RECIPES
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.train import train_loop
+
+    base = dataclasses.replace(get_config("internlm2-20b"), num_layers=DIST_LAYERS,
+                               use_pallas=True)
+    mesh = make_smoke_mesh(device="cuda")
+    runs = {}
+    try:
+        context = dict(mesh=mesh, recipe=RECIPES["baseline"])
+        for dtype, name, kw, kernel in (("bfloat16", "context", context, True),
+                                        ("bfloat16", "plain", {}, True),
+                                        ("bfloat16", "plain without K1", {}, False),
+                                        ("float32", "context", context, True),
+                                        ("float32", "plain", {}, True)):
+            cfg = dataclasses.replace(base, param_dtype=dtype, compute_dtype=dtype,
+                                      use_pallas=kernel)
+            name = f"{dtype} {name}"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            state, records = train_loop(cfg, steps=DIST_STEPS, batch_size=DIST_BATCH,
+                                        seq=DIST_SEQ, device="cuda", log=lambda s: None, **kw)
+            runs[name] = dict(launches=read_counts()["flash_attention"],
+                              loss=[r["loss"] for r in records],
+                              grad_norm=[r["grad_norm"] for r in records],
+                              step_ms=[r["step_ms"] for r in records],
+                              tokens_per_s=[r["tokens_per_s"] for r in records],
+                              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            del state
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    per_run = k1_launches_per_microbatch(base) * base.microbatches * DIST_STEPS
+    expected = {name: per_run if name.endswith(" plain") else 0 for name in runs}
+    pairs = {"bfloat16": ("bfloat16 context", "bfloat16 plain"),
+             "bfloat16 without K1": ("bfloat16 context", "bfloat16 plain without K1"),
+             "float32": ("float32 context", "float32 plain")}
+    diff, gn_rel = {}, {}
+    for key, (a, b) in pairs.items():
+        diff[key] = max(abs(x - y) for x, y in zip(runs[a]["loss"], runs[b]["loss"]))
+        gn_rel[key] = [abs(x / y - 1) for x, y in zip(runs[a]["grad_norm"], runs[b]["grad_norm"])]
+    res = dict(arch=base.name, layers=base.num_layers, batch=DIST_BATCH, seq=DIST_SEQ,
+               steps=DIST_STEPS, mesh={"data": 1, "model": 1}, backend="nccl",
+               recipe="baseline", runs=runs, k1_expected=expected, max_loss_diff=diff,
+               loss_tol=DIST_LOSS_TOL, grad_norm_rel_diff=gn_rel,
+               grad_norm_tol_first_step=DIST_GRAD_NORM_TOL)
+    emit({"phase": "distributed", **res})
+    held = ("bfloat16 without K1", "float32")
+    if (max(diff.values()) > DIST_LOSS_TOL
+            or max(gn_rel[k][0] for k in held) > DIST_GRAD_NORM_TOL
+            or not all(math.isfinite(x) for r in runs.values() for x in r["loss"])):
+        raise AssertionError(f"distributed: losses or grad norms part: {runs}")
+    for name, n in expected.items():
+        if runs[name]["launches"] != n:
+            raise AssertionError(f"distributed: K1 launched {runs[name]['launches']} times "
+                                 f"{name}, expected {n}")
     return res
 
 
@@ -2512,10 +2932,10 @@ def dense_train_phase(k1) -> dict:
                               use_pallas=True)
     assert cfg.qkv_bias and cfg.microbatches == 4
     runs = {}
-    for policy, recompute in (("nothing", 1), ("full", 2)):
+    for policy in ("nothing", "full"):
         c = dataclasses.replace(cfg, remat_policy=policy)
         runs[policy] = train_phase(
-            c, k1, DENSE_LAYERS * c.microbatches * DENSE_STEPS * recompute,
+            c, k1, k1_launches_per_microbatch(c) * c.microbatches * DENSE_STEPS,
             lambda path: path.rsplit("/", 1)[-1] in ("bq", "bk", "bv"),
             steps=DENSE_STEPS, name=f"dense_train {policy}", profile=False)
     return runs
@@ -2651,7 +3071,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     timed("rg_decode_parity", rg_decode_parity_phase, k2)
-    lm_cfg = get_config("internlm2-20b")
+    lm_cfg = dataclasses.replace(get_config("internlm2-20b"), num_layers=LM_LAYERS)
     paged_serving, params = timed("paged_serving", paged_serving_phase, lm_cfg)
     graphs["internlm2-20b"] = timed("decode_graph internlm2", decode_graph_phase, lm_cfg, params,
                                     ("paged", "contiguous"), PAGED_MAX_SEQ, (1024,))
@@ -2698,6 +3118,10 @@ def main() -> int:
     train_substrate = timed("train_substrate", train_substrate_phase, k3.rwkv6_scan)
     dense = timed("dense_train", dense_train_phase, fa.flash_attention)
     moe_train = timed("moe_train", moe_train_phase, fa.flash_attention)
+    vision = timed("vision_serving", vision_serving_phase)
+    vision_parity = timed("vision_parity", vision_parity_phase)
+    vision_train = timed("vision_train", vision_train_phase, fa.flash_attention)
+    distributed = timed("distributed", distributed_phase)
     emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - t0})
     paged_runs = paged_serving["runs"]
     emit({"phase": "summary", "internlm2-20b serving": {
@@ -2745,6 +3169,26 @@ def main() -> int:
             "window_idle_share_unprofiled": r["window"].get("device_idle_share_unprofiled",
                                                             "not measured")}
            for name, r in (("moe_serving", moe_serving), ("mla_serving", mla_serving))},
+        "llama-3.2-vision-90b serving": {k: vision[k] for k in (
+            "layers", "prime_ms", "prime_bound_ms_mean", "step_ms", "step_ms_median",
+            "step_bound_ms", "tokens_per_s", "peak_mem_gb")} | {
+            "eager_step_ms_median": vision["eager"]["step_ms_median"],
+            "paged_step_ms_median": vision["paged"]["step_ms_median"],
+            "paged_token_agreement_bf16": vision["paged"]["token_agreement_bf16"],
+            "logits_bit_equal": vision["logits"]["bit_equal"],
+            "window_idle_share_unprofiled": vision["window"].get(
+                "device_idle_share_unprofiled", "not measured")},
+        "llama-3.2-vision-90b parity": {k: vision_parity[k] for k in (
+            "layers", "max_layer_rel_err", "limit", "image_kv_equal")},
+        "llama-3.2-vision-90b train": {
+            "step_ms": [r["step_ms"] for r in vision_train["steps"]],
+            "tokens_per_s": [r["tokens_per_s"] for r in vision_train["steps"]],
+            **{k: vision_train[k] for k in ("layers", "floor_ms", "k1_per_step", "k1_expected",
+                                            "peak_mem_gb")}},
+        "internlm2-20b distributed": {k: distributed[k] for k in (
+            "layers", "mesh", "max_loss_diff", "loss_tol", "grad_norm_rel_diff")} | {
+            name: {k: r[k] for k in ("loss", "grad_norm", "step_ms", "launches")}
+            for name, r in distributed["runs"].items()},
         "moonshot-v1-16b-a3b moe_train": {
             "step_ms": [r["step_ms"] for r in moe_train["steps"]],
             "tokens_per_s": [r["tokens_per_s"] for r in moe_train["steps"]],
@@ -2779,7 +3223,10 @@ def main() -> int:
                    "serving_substrate": substrate["whisper-large-v3"]["k1_launches"],
                    **{f"dense_train {policy}": run["launches"]["flash_attention"]
                       for policy, run in dense.items()},
-                   "moe_train": moe_train["launches"]["flash_attention"]}
+                   "moe_train": moe_train["launches"]["flash_attention"],
+                   "vision_train": vision_train["launches"]["flash_attention"],
+                   **{f"distributed {name}": r["launches"]
+                      for name, r in distributed["runs"].items()}}
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -16,6 +16,7 @@ from repro_torch.configs.base import (  # noqa: F401
 from repro_torch.configs import command_r_35b  # noqa: F401,E402
 from repro_torch.configs import deepseek_v2_236b  # noqa: F401,E402
 from repro_torch.configs import internlm2_20b  # noqa: F401,E402
+from repro_torch.configs import llama_3_2_vision_90b  # noqa: F401,E402
 from repro_torch.configs import moonshot_v1_16b_a3b  # noqa: F401,E402
 from repro_torch.configs import nemotron_4_340b  # noqa: F401,E402
 from repro_torch.configs import qwen2_5_32b  # noqa: F401,E402

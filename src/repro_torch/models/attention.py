@@ -6,10 +6,13 @@ The plain path is the oracle for the hand-written flash kernel
 (``repro_torch.kernels.flash_attention``), which ``chunked_attention`` takes
 under the reference's gate when ``cfg.use_pallas`` is set.
 
-The reference's sequence-parallel hooks (``sp_*``, ``constrain*``) are
-identities without a sharding context and are left out.  Cache updates are
-in place: the caller's cache tensors (or page pool) are written, and
-returned.
+Under a sharding context (``repro_torch.distributed``) ``self_attention``
+and ``prefill_attention`` take the explicit-collective blocks where the
+reference's do (``sp_gqa_block``, then ``sp_attention``), and every other
+path works on this rank's shards with whole weights
+(``distributed.ctx.gathered``); outside one those hooks are identities.
+Cache updates are in place: the caller's cache tensors (or page pool) are
+written, and returned.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import torch_dtype
+from repro_torch.distributed import ctx as dctx
 from repro_torch.models import common as cm
 
 NEG_INF = -1e30
@@ -46,21 +50,25 @@ def attn_specs(cfg, *, bias: Optional[bool] = None, cross: bool = False) -> dict
     return s
 
 
-def project_qkv(p: dict, x, xkv=None):
+def project_qkv(p: dict, x, xkv=None, sp_constrain: bool = False):
     """(B,S,d) -> q (B,S,H,hd), k/v (B,T,K,hd)."""
+    g = dctx.gathered
     xkv = x if xkv is None else xkv
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("btd,dgk->btgk", xkv, p["wk"])
-    v = torch.einsum("btd,dgk->btgk", xkv, p["wv"])
+    q = torch.einsum("bsd,dhk->bshk", x, g(p["wq"]))
+    k = torch.einsum("btd,dgk->btgk", xkv, g(p["wk"]))
+    v = torch.einsum("btd,dgk->btgk", xkv, g(p["wv"]))
     if "bq" in p:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
+        q = q + g(p["bq"]).to(q.dtype)
+        k = k + g(p["bk"]).to(k.dtype)
+        v = v + g(p["bv"]).to(v.dtype)
+    if sp_constrain:
+        q, k, v = dctx.constrain_qkv(q), dctx.constrain_qkv(k), dctx.constrain_qkv(v)
     return q, k, v
 
 
 def out_proj(p: dict, o):
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"]).to(o.dtype)
+    y = torch.einsum("bshk,hkd->bsd", o, dctx.gathered(p["wo"]))
+    return dctx.constrain_residual(y.to(o.dtype))
 
 
 def _block_attend(q_blk, k, v, row_pos, col_pos, *, causal, window, kv_valid):
@@ -137,10 +145,22 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: Optional[int] = N
 def self_attention(cfg, p: dict, x, positions, *, causal=True,
                    window: Optional[int] = None):
     """Full-sequence self-attention (train / encoder)."""
-    q, k, v = project_qkv(p, x)
+    from repro_torch.distributed.sp_attention import maybe_sp_attention_fused
+    from repro_torch.distributed.sp_block import sp_gqa_block
+
+    blk = sp_gqa_block(cfg, p, x, positions, causal=causal, window=window,
+                       with_cache=False)
+    if blk is not None:
+        return blk[0]
+    q, k, v = project_qkv(p, x, sp_constrain=True)
     if cfg.family != "encdec":  # whisper uses absolute pos-emb, not RoPE
-        q = cm.rope(q, positions, cfg.rope_theta)
-        k = cm.rope(k, positions, cfg.rope_theta)
+        rows = dctx.local_rows(positions, x.shape[1])
+        q = cm.rope(q, rows, cfg.rope_theta)
+        k = cm.rope(k, rows, cfg.rope_theta)
+    y = maybe_sp_attention_fused(q, k, v, p["wo"], causal=causal,
+                                 window=window, chunk=cfg.attn_chunk)
+    if y is not None:
+        return y
     o = chunked_attention(q, k, v, causal=causal, window=window,
                           chunk=cfg.attn_chunk, cfg=cfg)
     return out_proj(p, o)
@@ -158,18 +178,33 @@ def prefill_attention(cfg, p: dict, x, positions, *, window: Optional[int] = Non
     ``past_len + arange(S)``) attend over concat(past, suffix), and the
     returned cache covers the suffix only — the prefix's pages already hold
     its K/V."""
-    q, k, v = project_qkv(p, x)
+    from repro_torch.distributed.sp_attention import maybe_sp_attention_fused
+    from repro_torch.distributed.sp_block import sp_gqa_block
+
+    if past is None:
+        blk = sp_gqa_block(cfg, p, x, positions, causal=True, window=window,
+                           with_cache=True)
+        if blk is not None:
+            y, cache = blk
+            if window is not None and cache["k"].shape[1] > window:
+                cache = {"k": cache["k"][:, -window:], "v": cache["v"][:, -window:]}
+            return y, cache
+    q, k, v = project_qkv(p, x, sp_constrain=True)
     if cfg.family != "encdec":
-        q = cm.rope(q, positions, cfg.rope_theta)
-        k = cm.rope(k, positions, cfg.rope_theta)
+        rows = dctx.local_rows(positions, x.shape[1])
+        q = cm.rope(q, rows, cfg.rope_theta)
+        k = cm.rope(k, rows, cfg.rope_theta)
     if past is not None:
         k_all = torch.cat([past["k"].to(k.dtype), k], dim=1)
         v_all = torch.cat([past["v"].to(v.dtype), v], dim=1)
         o = chunked_attention(q, k_all, v_all, causal=True, window=window,
                               chunk=cfg.attn_chunk, q_offset=past_len)
         return out_proj(p, o), {"k": k, "v": v}
-    o = chunked_attention(q, k, v, causal=True, window=window, chunk=cfg.attn_chunk)
-    y = out_proj(p, o)
+    y = maybe_sp_attention_fused(q, k, v, p["wo"], causal=True,
+                                 window=window, chunk=cfg.attn_chunk)
+    if y is None:
+        o = chunked_attention(q, k, v, causal=True, window=window, chunk=cfg.attn_chunk)
+        y = out_proj(p, o)
     if window is not None and k.shape[1] > window:
         k, v = k[:, -window:], v[:, -window:]
     return y, {"k": k, "v": v}
@@ -277,9 +312,9 @@ def paged_decode_attention(cfg, p: dict, x, cache: dict, pos, tables, *,
 
 def cross_attention(cfg, p: dict, x, kv_cache: dict):
     """Cross-attention against precomputed encoder/image K,V (full MHA)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = torch.einsum("bsd,dhk->bshk", x, dctx.gathered(p["wq"]))
     if "bq" in p:
-        q = q + p["bq"].to(q.dtype)
+        q = q + dctx.gathered(p["bq"]).to(q.dtype)
     o = chunked_attention(q, kv_cache["k"], kv_cache["v"], causal=False,
                           chunk=cfg.attn_chunk)
     return out_proj(p, o)
@@ -287,6 +322,7 @@ def cross_attention(cfg, p: dict, x, kv_cache: dict):
 
 def cross_kv(p: dict, ctx):
     """Precompute cross-attention K,V from encoder/image embeddings."""
+    p = dctx.gathered({name: p[name] for name in ("wk", "wv", "bk", "bv") if name in p})
     k = torch.einsum("btd,dgk->btgk", ctx, p["wk"])
     v = torch.einsum("btd,dgk->btgk", ctx, p["wv"])
     if "bk" in p:

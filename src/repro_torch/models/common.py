@@ -20,6 +20,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
+from repro_torch.distributed import ctx as dctx
+
 
 def resolve_device(device=None) -> torch.device:
     """Entry points run on the card unless the caller asks for the CPU:
@@ -142,6 +144,7 @@ def norm_spec(cfg, dim: int, axes=("embed",)) -> dict:
 
 
 def apply_norm(cfg, p: dict, x):
+    p = dctx.gathered(p)
     if cfg.norm == "layernorm":
         return layernorm(x, p["scale"], p.get("bias"))
     return rmsnorm(x, p["scale"])

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import torch_dtype
+from repro_torch.distributed import ctx as dctx
 from repro_torch.models import common as cm
 
 
@@ -22,13 +23,22 @@ def ffn_specs(cfg, d_ff=None) -> dict:
 
 
 def ffn(cfg, p: dict, x):
+    from repro_torch.distributed.sp_ffn import sp_ffn
+
+    y = sp_ffn(cfg, p, x)    # explicit-collective Megatron/ZeRO-3 block
+    if y is not None:
+        return y
+    p = dctx.gathered(p)
     up = x @ p["w_up"]
     if "w_gate" in p:
         act = cm.ACTIVATIONS["silu" if cfg.ffn_activation == "swiglu" else "gelu"]
         h = act(x @ p["w_gate"]) * up
     else:
         h = cm.ACTIVATIONS[cfg.ffn_activation](up)
-    return (h @ p["w_down"]).to(x.dtype)
+    if h.ndim == 3:
+        h = dctx.constrain_hidden(h)
+    y = (h @ p["w_down"]).to(x.dtype)
+    return dctx.constrain_residual(y) if y.ndim == 3 else y
 
 
 def rwkv_channel_mix_specs(cfg) -> dict:

@@ -18,6 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import torch_dtype
+from repro_torch.distributed import ctx as dctx
 from repro_torch.models import common as cm
 from repro_torch.models.transformer import (_PAGED_MIXER_LEAVES, LayerDef, Stack,
                                             build_layer_defs)
@@ -77,13 +78,14 @@ def _sinusoid(positions, d_model: int, device=None):
 
 
 def _embed_tokens(cfg, params, tokens):
-    return params["embed"][tokens].to(cfg.dtype)
+    x = dctx.gathered(params["embed"])[tokens]
+    return dctx.constrain(x.to(cfg.dtype), ("batch", "act_seq", None))
 
 
 def _logit_kernel(cfg, params):
     if cfg.tie_embeddings:
-        return params["embed"].T
-    return params["unembed"]
+        return dctx.gathered(params["embed"]).T
+    return dctx.gathered(params["unembed"])
 
 
 def _encode(cfg, params, frames, dtype):
@@ -101,8 +103,8 @@ def _context(cfg, params, batch, x, positions):
         ctx = _encode(cfg, params, batch["frames"], x.dtype)
         return x + _sinusoid(positions, cfg.d_model).to(x.dtype), ctx
     if cfg.family == "vision":
-        raise NotImplementedError("vision cross-attention is not ported yet: "
-                                  "ROADMAP A8.5 (llama-3.2-vision-90b)")
+        # the vision frontend is a stub: the batch carries the patch embeddings
+        return x, batch["image_embeds"].to(x.dtype)
     return x, None
 
 
@@ -143,23 +145,29 @@ AUX_WEIGHT = 0.01
 
 
 def loss_fn(cfg, params, batch):
-    """batch: {tokens, labels[, frames]} → (loss, metrics): the
-    cross-entropy plus ``AUX_WEIGHT`` times the MoE load-balance loss."""
+    """batch: {tokens, labels[, frames][, image_embeds]} → (loss, metrics):
+    the cross-entropy plus ``AUX_WEIGHT`` times the MoE load-balance loss.
+    Under a sharding context each rank takes its shard of the (global)
+    batch and the loss is the mean over every rank's tokens."""
+    batch = dctx.local_batch(batch)
     tokens = batch["tokens"]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    positions = dctx.positions(tokens)
     x = _embed_tokens(cfg, params, tokens)
     x, ctx = _context(cfg, params, batch, x, positions)
     feats, aux = _decoder(cfg).train(params["decoder"], x, positions, ctx)
     feats = cm.apply_norm(cfg, params["final_norm"], feats)
     xent = chunked_xent(cfg, feats, _logit_kernel(cfg, params), batch["labels"])
+    xent = dctx.token_mean(xent, batch["labels"].numel())
     loss = xent + AUX_WEIGHT * aux
     return loss, {"xent": xent, "moe_aux": aux}
 
 
 def full_forward_logits(cfg, params, batch):
-    """Train-path forward returning (B, S, V) logits (for tests: small V)."""
+    """Train-path forward returning (B, S, V) logits (for tests: small V;
+    under a sharding context, this rank's rows of them)."""
+    batch = dctx.local_batch(batch)
     tokens = batch["tokens"]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    positions = dctx.positions(tokens)
     x = _embed_tokens(cfg, params, tokens)
     x, ctx = _context(cfg, params, batch, x, positions)
     feats, _ = _decoder(cfg).train(params["decoder"], x, positions, ctx)
@@ -174,11 +182,16 @@ def build_prefill_step(cfg):
     dec = _decoder(cfg)
 
     def prefill_step(params, batch):
+        """Under a sharding context: this rank's shard of the cache and its
+        batch rows' logits."""
+        batch = dctx.local_batch(batch)
         tokens = batch["tokens"]
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        positions = dctx.positions(tokens)
         x = _embed_tokens(cfg, params, tokens)
         x, ctx = _context(cfg, params, batch, x, positions)
         feats, cache = dec.prefill(params["decoder"], x, positions, ctx)
+        if dctx.current() is not None:          # the last row is the last rank's
+            feats = dctx.gather(feats[:, -1:], dctx.layout().s_axes, 1)
         return cache, _logits(cfg, params, feats[:, -1:])[:, 0]
 
     return prefill_step

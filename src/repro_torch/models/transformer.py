@@ -18,10 +18,11 @@ through per-row page tables).  Every mode has the mixers ``attn`` (with
 the whisper decoder's cross-attention), ``local_attn`` (sliding window,
 ring-buffer cache), ``recurrent`` (RG-LRU), ``rwkv`` (its state and
 token-shift carries) and ``mla`` (latent cache, absorbed decode), and the
-FFNs ``dense``, ``moe`` and ``rwkv_cm``.  The ``cross_only`` mixer
-(llama-3.2-vision-90b) raises ``NotImplementedError`` naming its ROADMAP
-item.  The MoE auxiliary loss is threaded through every mode, as in the
-reference; ``train`` returns it, ``prefill`` and ``decode`` drop it.
+FFNs ``dense``, ``moe`` and ``rwkv_cm``, and the ``cross_only`` mixer
+(llama-3.2-vision-90b: full-MHA cross-attention to the image embeddings,
+gated by ``tanh(xgate)``, its K/V resident in the decode cache).  The MoE
+auxiliary loss is threaded through every mode, as in the reference;
+``train`` returns it, ``prefill`` and ``decode`` drop it.
 ``train`` wraps each repetition of the cycle in ``cfg.remat_policy`` as
 the reference does (``common.maybe_remat``: ``"full"`` and, on one device,
 ``"moe"`` recompute the block in backward, ``"dots"`` / ``"dots_no_batch"``
@@ -38,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import torch_dtype
+from repro_torch.distributed import ctx as dctx
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ffn as ffn_mod
@@ -52,19 +54,6 @@ class LayerDef:
     mixer: str              # attn | local_attn | recurrent | rwkv | mla | cross_only
     ffn: str                # dense | moe | rwkv_cm
     cross: bool = False     # additional cross-attn (whisper decoder)
-
-
-#: layer kinds not yet ported -> the ROADMAP item that ports them
-_NOT_PORTED = {
-    "cross_only": "ROADMAP A8.5 (llama-3.2-vision-90b)",
-}
-
-
-def _require_ported(ld: LayerDef) -> None:
-    for kind in (ld.mixer, ld.ffn):
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
 
 
 def build_layer_defs(cfg) -> List[LayerDef]:
@@ -109,7 +98,6 @@ def factor_layers(cfg, defs: List[LayerDef]) -> Tuple[List, List, int, List]:
 
 
 def layer_specs(cfg, ld: LayerDef) -> dict:
-    _require_ported(ld)
     s = {"ln1": cm.norm_spec(cfg, cfg.d_model)}
     if ld.mixer == "rwkv":
         s["mixer"] = rwkv_mod.rwkv_specs(cfg)
@@ -117,6 +105,9 @@ def layer_specs(cfg, ld: LayerDef) -> dict:
         s["mixer"] = rglru_mod.rglru_specs(cfg)
     elif ld.mixer == "mla":
         s["mixer"] = mla_mod.mla_specs(cfg)
+    elif ld.mixer == "cross_only":
+        s["mixer"] = attn.attn_specs(cfg, cross=True)
+        s["xgate"] = cm.ParamSpec((1,), (None,), torch.float32, "zeros")
     else:                                   # attn | local_attn
         s["mixer"] = attn.attn_specs(cfg)
     if ld.cross:
@@ -140,7 +131,6 @@ def stack_specs(tree, n: int):
 
 def layer_cache(cfg, ld: LayerDef, batch: int, seq_len: int, device) -> dict:
     """Zero decode cache for one layer."""
-    _require_ported(ld)
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     pdt = torch_dtype(cfg.param_dtype)
 
@@ -159,6 +149,10 @@ def layer_cache(cfg, ld: LayerDef, batch: int, seq_len: int, device) -> dict:
         a = cfg.mla
         c = {"c_kv": mk(batch, seq_len, a.kv_lora_rank),
              "k_rope": mk(batch, seq_len, a.qk_rope_head_dim)}
+    elif ld.mixer == "cross_only":
+        # the image K/V, computed once at prefill (full MHA, K = H)
+        t = cfg.num_image_tokens
+        c = {"ck": mk(batch, t, cfg.num_heads, hd), "cv": mk(batch, t, cfg.num_heads, hd)}
     else:
         # a local layer keeps a ring buffer of its window's latest positions
         slots = min(cfg.local_window, seq_len) if ld.mixer == "local_attn" else seq_len
@@ -221,9 +215,42 @@ def _ffn_apply(cfg, ld, p, x, aux):
     return x + ffn_mod.ffn(cfg, p["ffn"], h2), aux
 
 
+def _gated_cross(cfg, p, h, kv):
+    """A ``cross_only`` layer's mixer: cross-attention to the image K/V,
+    scaled by ``tanh(xgate)``."""
+    out = attn.cross_attention(cfg, p["mixer"], h, kv)
+    return out * torch.tanh(dctx.gathered(p["xgate"])).to(out.dtype)
+
+
+#: layer kinds whose distributed paths are not ported yet ("cross": the
+#: whisper decoder's cross-attention, whose context is the encoder's)
+_NO_DISTRIBUTED = {"mla", "recurrent", "rwkv", "moe", "rwkv_cm", "cross"}
+
+
+def undistributed_kind(defs) -> Optional[str]:
+    """The first layer kind in ``defs`` whose distributed path is not
+    ported (ROADMAP A9.2), or None."""
+    for d in defs:
+        for kind in (d.mixer, d.ffn) + (("cross",) if d.cross else ()):
+            if kind in _NO_DISTRIBUTED:
+                return kind
+    return None
+
+
+def _require_distributed(defs) -> None:
+    """Under a sharding context, raise for a layer kind whose distributed
+    path is not ported."""
+    kind = undistributed_kind(defs)
+    if kind is not None:
+        raise NotImplementedError(f"layer kind {kind!r} under a sharding context: {dctx.A92}")
+
+
 def apply_layer_train(cfg, ld, p, x, positions, ctx, aux, bidirectional=False):
+    x = dctx.constrain(x, ("batch", "act_seq", None))
     h = cm.apply_norm(cfg, p["ln1"], x)
-    if ld.mixer == "rwkv":
+    if ld.mixer == "cross_only":
+        out = _gated_cross(cfg, p, h, attn.cross_kv(p["mixer"], ctx))
+    elif ld.mixer == "rwkv":
         out, _, _ = rwkv_mod.rwkv_time_mix(cfg, p["mixer"], h, want_state=False)
     elif ld.mixer == "recurrent":
         out, _ = rglru_mod.rglru_block(cfg, p["mixer"], h)
@@ -252,8 +279,13 @@ def apply_layer_prefill(cfg, ld, p, x, positions, ctx, aux, past=None, past_len=
     sharing to stacks made purely of those."""
     if past is not None and ld.mixer not in _PAGED_MIXER_LEAVES:
         raise ValueError(f"prefix reuse unsupported for mixer {ld.mixer!r}")
+    x = dctx.constrain(x, ("batch", "act_seq", None))
     h = cm.apply_norm(cfg, p["ln1"], x)
-    if ld.mixer == "recurrent":
+    if ld.mixer == "cross_only":
+        ckv = attn.cross_kv(p["mixer"], ctx)
+        out = _gated_cross(cfg, p, h, ckv)
+        cache = {"ck": ckv["k"], "cv": ckv["v"]}
+    elif ld.mixer == "recurrent":
         out, (hf, conv) = rglru_mod.rglru_block(cfg, p["mixer"], h)
         cache = {"h": hf, "conv": conv}
     elif ld.mixer == "rwkv":
@@ -278,15 +310,18 @@ def apply_layer_prefill(cfg, ld, p, x, positions, ctx, aux, past=None, past_len=
         cache["ts_cm"] = h2[:, -1]
         return x + ffn_mod.rwkv_channel_mix(cfg, p["ffn"], h2, prev), cache, aux
     x, aux = _ffn_apply(cfg, ld, p, x, aux)
-    return x, cache, aux
+    return x, dctx.constrain_cache(cache), aux
 
 
 def apply_layer_decode(cfg, ld, p, x, cache, pos, aux, tables=None, page_size=None):
     """x: (B,1,d). Updates ``cache`` in place; -> (x, aux).  With ``tables``
     (paged serving) the attn and mla leaves are a shared page pool read
     through per-row page tables; resident leaves keep per-row state."""
+    x = dctx.constrain(x, ("batch", "act_seq", None))
     h = cm.apply_norm(cfg, p["ln1"], x)
-    if ld.mixer == "recurrent":
+    if ld.mixer == "cross_only":
+        out = _gated_cross(cfg, p, h, {"k": cache["ck"], "v": cache["cv"]})
+    elif ld.mixer == "recurrent":
         out, hf, conv = rglru_mod.rglru_decode(cfg, p["mixer"], h, cache["h"], cache["conv"])
         cache["h"].copy_(hf)
         cache["conv"].copy_(conv)
@@ -335,8 +370,6 @@ class Stack:
         self.cfg = cfg
         self.bidirectional = bidirectional
         self.defs = defs if defs is not None else build_layer_defs(cfg)
-        for d in self.defs:
-            _require_ported(d)
         self.prefix, self.cycle, self.reps, self.suffix = factor_layers(cfg, self.defs)
 
     def _layers(self, p: dict):
@@ -393,7 +426,11 @@ class Stack:
 
     # -- forward ------------------------------------------------------------
     def train(self, p: dict, x, positions, ctx=None):
-        """-> (features, the summed MoE auxiliary loss; 0 without MoE)."""
+        """-> (features, the summed MoE auxiliary loss; 0 without MoE).
+        Under a sharding context ``x`` is this rank's shard of the residual
+        layout and ``positions`` the whole sequence's."""
+        if dctx.current() is not None:
+            _require_distributed(self.defs)
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, d in enumerate(self.prefix):
@@ -419,6 +456,8 @@ class Stack:
         stack's prefix K/V (or latents) at length ``past_len``; only the
         suffix in ``x`` is computed and the emitted cache covers that
         suffix.  The MoE auxiliary loss is dropped, as in the reference."""
+        if dctx.current() is not None:
+            _require_distributed(self.defs)
         caches: dict = {}
         stacked: dict = {}
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -441,6 +480,8 @@ class Stack:
     def decode(self, p: dict, x, caches: dict, pos, tables=None, page_size=None):
         """One token; ``caches`` is updated in place and returned.  With
         ``tables`` the pageable leaves are pools read through them."""
+        if dctx.current() is not None:
+            raise NotImplementedError(f"decode under a sharding context: {dctx.A92}")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for group, key, r, d, lp in self._layers(p):
             c = caches[group][key] if r is None else _at(caches[group][key], r)

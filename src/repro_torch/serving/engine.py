@@ -234,6 +234,11 @@ class ServingEngine:
             extras["frames"] = torch.zeros(
                 (B, self.cfg.encoder_frames, self.cfg.d_model),
                 dtype=torch_dtype(self.cfg.param_dtype), device=self.device)
+        if self.cfg.family == "vision":
+            # so is the vision frontend: zero patch embeddings
+            extras["image_embeds"] = torch.zeros(
+                (B, self.cfg.num_image_tokens, self.cfg.d_model),
+                dtype=torch_dtype(self.cfg.param_dtype), device=self.device)
         return extras
 
     def _tokens(self, arr: np.ndarray) -> torch.Tensor:

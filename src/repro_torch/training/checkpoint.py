@@ -12,6 +12,10 @@ optimizer step may run on), and retention keeps the newest K checkpoints.
 numpy has no bfloat16: a bf16 leaf is written as fp32 (exact) and cast back
 to the template's dtype on restore; a bf16 leaf written by the reference
 (``ml_dtypes``, read back by numpy as raw 2-byte records) is read as bf16.
+A sharded (DTensor) state is gathered whole for the save (a collective:
+every rank of the group takes part), rank 0 alone writes and retains, and
+every rank waits for the write before it goes on or restores (a barrier);
+a restore reads the file on every rank into the template's placements.
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _is_namedtuple(x) -> bool:
@@ -51,6 +57,8 @@ def _paths(tree, prefix=""):
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):           # sharded state: every rank gathers
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
@@ -61,11 +69,18 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
     return {key: _to_numpy(leaf) for key, leaf in _paths(tree)}
 
 
+def _group_size() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 def _from_numpy(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:     # ml_dtypes bfloat16
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr, copy=True))
+    if isinstance(like, DTensor):
+        return distribute_tensor(t.to(device=like.device, dtype=like.dtype),
+                                 like.device_mesh, like.placements)
     return t.to(device=like.device, dtype=like.dtype)
 
 
@@ -103,18 +118,35 @@ class CheckpointManager:
         self.keep = keep
         self.async_save = async_save
         self._pending: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._barrier_due = False
 
     # -- save -------------------------------------------------------------
     def save(self, step: int, state, metadata: Optional[Dict] = None) -> Path:
-        if self.async_save:
-            self.wait()
+        self.wait()
+        final = self.dir / f"ckpt-{step:08d}.npz"
+        self._barrier_due = _group_size() > 1
+        if self._barrier_due and dist.get_rank() > 0:
+            for _, leaf in _paths(state):       # rank 0's gathers need this rank's shards
+                if isinstance(leaf, DTensor):
+                    leaf.full_tensor()
+        elif self.async_save:
             host_state = _host_copy(state)  # snapshot now
-            t = threading.Thread(target=self._write,
+            t = threading.Thread(target=self._write_caught,
                                  args=(step, host_state, metadata or {}))
             t.start()
             self._pending = t
-            return self.dir / f"ckpt-{step:08d}.npz"
-        return self._write(step, state, metadata or {})
+        else:
+            self._write(step, state, metadata or {})
+        if not self.async_save:
+            self.wait()
+        return final
+
+    def _write_caught(self, step: int, state, metadata: Dict) -> None:
+        try:
+            self._write(step, state, metadata)
+        except BaseException as e:          # raised again by wait()
+            self._error = e
 
     def _write(self, step: int, state, metadata: Dict) -> Path:
         flat = _flatten(state)
@@ -124,7 +156,7 @@ class CheckpointManager:
             np.savez(f, **flat)
         meta = dict(metadata, step=step, saved_at=time.time(),
                     leaves=len(flat))
-        tmp_meta = self.dir / f".tmp-{step:08d}.json"
+        tmp_meta = self.dir / f".tmp-{step:08d}-{os.getpid()}.json"
         tmp_meta.write_text(json.dumps(meta))
         os.replace(tmp, final)                      # atomic
         os.replace(tmp_meta, self.dir / f"ckpt-{step:08d}.json")
@@ -132,9 +164,17 @@ class CheckpointManager:
         return final
 
     def wait(self) -> None:
+        """Wait for the last save: its writer thread, and in a group of
+        ranks every rank for rank 0's write.  A failed write raises here."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._barrier_due:
+            self._barrier_due = False
+            dist.barrier()
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
 
     def _retain(self) -> None:
         ckpts = self.list_steps()

@@ -7,7 +7,9 @@ leaf's update follows its moment dtype, as in the reference: bf16 moments
 mean bf16 update math, with each constant rounded to bf16 first as JAX's
 weak-typed scalars are.  The update is in place: the reference's launcher
 donates the state to the jitted step (``donate_argnums=0``), and the port
-reuses the same buffers.
+reuses the same buffers.  Under a sharding context the parameters, grads and
+moments are DTensors of one placement: each rank updates its own shards,
+and the global grad norm sums every shard once.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.models import common as cm
@@ -38,15 +41,27 @@ class AdamWConfig:
 
 
 def init_opt_state(params, moment_dtype) -> OptState:
+    """Zero moments laid out as ``params`` (DTensors take their placements)."""
     mdt = torch_dtype(moment_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=mdt)
     device = cm.tree_leaves(params)[0][1].device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
                     mu=cm.tree_map(zeros, params), nu=cm.tree_map(zeros, params))
 
 
+def _whole(t):
+    """A DTensor reduction's value, the same on every rank."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _local(t):
+    """The tensor this rank updates in place (a DTensor's local shard)."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for _, g in cm.tree_leaves(tree)))
+    return torch.sqrt(sum(_whole(torch.sum(torch.square(g.float())))
+                          for _, g in cm.tree_leaves(tree)))
 
 
 def _schedule(hp: AdamWConfig, step):
@@ -96,8 +111,8 @@ def apply_updates(hp: AdamWConfig, params, grads, state: OptState):
         # slice by slice: the same arithmetic per element, with the update's
         # ~10 temporaries in the moment dtype bounded by the slice, not the
         # leaf (a 256000 x 4096 embedding would need ~40 GB of them in fp32)
-        pv, mv, vv = (t.view(-1) for t in (p, flat_m[path], flat_v[path]))
-        gv = flat_g[path].reshape(-1)
+        pv, mv, vv = (_local(t).view(-1) for t in (p, flat_m[path], flat_v[path]))
+        gv = _local(flat_g[path]).reshape(-1)
         for i in range(0, pv.numel(), UPDATE_SLICE):
             sl = slice(i, i + UPDATE_SLICE)
             upd_one(pv[sl], gv[sl], mv[sl], vv[sl])

@@ -35,6 +35,27 @@ def _grad_fn(cfg, params, batch):
             dict(zip(tracked, grads)))
 
 
+def _accumulate_grads(cfg, params, batch, acc: dict):
+    """``loss_fn``'s grads added into ``acc`` ({path: accumulator}) as
+    backward produces each one, which is then freed: the accumulators stand
+    in for a whole tree of grads, which would otherwise be held until
+    backward ends (13 GB for llama-3.2-vision-90b at 5 layers in bf16).
+    Leaves backward does not reach add nothing.  -> (loss, metrics)."""
+    tracked = {path: t.detach().requires_grad_() for path, t in cm.tree_leaves(params)}
+
+    def add(path):
+        def hook(leaf):
+            acc[path].add_(leaf.grad)
+            leaf.grad = None
+        return hook
+
+    for path, t in tracked.items():
+        t.register_post_accumulate_grad_hook(add(path))
+    loss, metrics = loss_fn(cfg, cm.tree_from_paths(params, tracked), batch)
+    loss.backward()
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+
 def build_train_step(cfg, hp: AdamWConfig = AdamWConfig()):
     """Train step with optional gradient accumulation.
 
@@ -54,15 +75,12 @@ def build_train_step(cfg, hp: AdamWConfig = AdamWConfig()):
             if rows % m:
                 raise ValueError(f"batch of {rows} rows does not split into {m} microbatches")
             adt = torch_dtype(cfg.grad_accum_dtype)
-            grads = {path: torch.zeros(p.shape, dtype=adt, device=p.device)
+            grads = {path: torch.zeros_like(p, dtype=adt)
                      for path, p in cm.tree_leaves(state.params)}
             losses, per_micro = [], []
             for i in range(m):
                 micro = {k: v[i * rows // m:(i + 1) * rows // m] for k, v in batch.items()}
-                (loss_i, metrics_i), grads_i = _grad_fn(cfg, state.params, micro)
-                for path, acc in grads.items():
-                    acc.add_(grads_i[path])
-                del grads_i
+                loss_i, metrics_i = _accumulate_grads(cfg, state.params, micro, grads)
                 losses.append(loss_i)
                 per_micro.append(metrics_i)
             for acc in grads.values():

@@ -582,6 +582,51 @@ def test_graphed_moe_decode_step_is_bit_equal_to_eager(card, paged):
     assert _serve(graphed, prompts, budgets, "g") == _serve(eager, prompts, budgets, "e")
 
 
+@pytest.mark.parametrize("paged", [False, True])
+def test_graphed_vision_decode_step_is_bit_equal_to_eager(card, paged):
+    """llama-3.2-vision-90b (reduced, fp32, 4 layers) with ``xgate = 0.5``
+    and the same seeded image embeddings in every admission of both engines
+    (the frontend stub gives zeros, under which a cross layer adds
+    nothing): one step's logits through the graph equal the eager step's
+    from the same cache bit for bit (the image K/V resident in the cache),
+    and the graphed engine gives the eager engine's tokens."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model_specs
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = reduced(get_config("llama-3.2-vision-90b"), num_layers=4)
+    params = init_params(model_specs(cfg), seed=1, device=card)
+    params["decoder"]["blocks"]["1"]["xgate"].fill_(0.5)
+    image = torch.randn((1, cfg.num_image_tokens, cfg.d_model), device=card,
+                        generator=torch.Generator(device=card).manual_seed(2))
+    graphed, eager = (ServingEngine(cfg, params, device=card, batch_size=3, max_seq=64,
+                                    paged=paged, page_size=8, decode_graphs=g)
+                      for g in (True, False))
+    for eng in (graphed, eager):
+        eng._batch_extras = lambda B: {"image_embeds": image.expand(B, -1, -1).contiguous()}
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in (5, 12, 9)]
+    for i, p in enumerate(prompts):
+        graphed.submit(Request(f"v{i}", p, max_new_tokens=6))
+    graphed.step()
+    with torch.inference_mode():
+        live = [s for s in graphed._slots if s.request is not None]
+        width = graphed._grow_tables(live) if paged else None
+        inputs = graphed._step_inputs(width)
+        _, want = graphed._decode(graphed.params, graphed._cb_cache, *inputs)
+        want = want.clone()
+        graph = graphed._graphs.get(width) or graphed._capture(width, inputs)
+        graph[0].replay()
+        assert torch.equal(graph[1], want)
+    ck = graphed._cb_cache["blocks"]["1"]["ck"]
+    assert ck[:, :len(prompts)].abs().max() > 0           # the image K/V are live
+    graphed.drain()
+    graphed.flush()
+    budgets = [7, 4, 11]
+    assert _serve(graphed, prompts, budgets, "g") == _serve(eager, prompts, budgets, "e")
+
+
 def test_mla_paged_decode_matches_contiguous_on_the_card(card):
     """deepseek-v2-236b (reduced, fp32) on the card: the paged engine (MLA
     latents in pool pages, prefix hits, a request growing across pages)

@@ -143,13 +143,35 @@ def test_extend_cache_ring_roll_matches_jax():
         np.testing.assert_array_equal(out[g]["0"][name].numpy(), np.asarray(ref[g]["0"][name]))
 
 
+class _StubMesh:
+    axis_names = ("data", "model")
+    shape = {"data": 2, "model": 2}
+
+
 @pytest.mark.parametrize("defs,item", [
-    ([LayerDef("cross_only", "dense")], "A8.5"),
+    ([LayerDef("mla", "moe")], "A9.2"),
+    ([LayerDef("attn", "moe")], "A9.2"),
+    ([LayerDef("recurrent", "dense")], "A9.2"),
+    ([LayerDef("rwkv", "rwkv_cm")], "A9.2"),
+    ([LayerDef("attn", "dense", cross=True)], "A9.2"),
 ])
 def test_unported_layer_kinds_name_their_roadmap_item(defs, item):
-    """A layer kind not ported yet raises, naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=item):
-        Stack(reduced(get_config("internlm2-20b")), defs=defs).cache(1, 8, "cpu")
+    """Every layer kind is ported for one device (the cache builds); under a
+    sharding context a kind whose distributed path is not ported yet raises,
+    naming its ROADMAP item, and the decode step raises for any kind."""
+    from repro_torch.distributed import RECIPES
+    from repro_torch.distributed.ctx import sharding_ctx
+
+    arch = {"mla": "deepseek-v2-236b", "recurrent": "recurrentgemma-9b",
+            "rwkv": "rwkv6-7b"}.get(defs[0].mixer, "internlm2-20b")
+    cfg = reduced(get_config(arch))
+    stack = Stack(cfg, defs=defs)
+    assert stack.cache(1, 8, "cpu")
+    with sharding_ctx(_StubMesh(), RECIPES["baseline"]):
+        with pytest.raises(NotImplementedError, match=item):
+            stack.train({}, torch.zeros(1, 4, cfg.d_model), torch.arange(4))
+        with pytest.raises(NotImplementedError, match=item):
+            stack.decode({}, torch.zeros(1, 1, cfg.d_model), {}, 4)
 
 
 @pytest.mark.parametrize("arch", DENSE_ARCHS)
